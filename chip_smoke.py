@@ -1,0 +1,563 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port of EPIC on one CUDA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result line):
+
+1. The card's name and power limit; TF32 off; the reproject-match CUDA
+   kernel built from ``src/repro_torch/kernels/reproject_match/csrc``.
+2. Each of the kernel's three launches (``reproject_match_pallas``,
+   ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
+   plain PyTorch version on the card, at the main path's shapes and at edge
+   cases: diff and coverage within 1e-5, bbox within 1e-3, the three
+   launches bitwise equal, the fused rows equal to the thresholded scores.
+3. Kernel and plain-version times (CUDA graphs of many launches, CUDA
+   events) beside the least time the card could take.
+4. EPIC's main path at the default full width (``EPICConfig()``: 128x128
+   frames, patch 16, capacity 192, window 32) with seeded random depth and
+   HIR networks, 96 synthetic frames ingested in chunks of 8 through
+   ``EPICCompressor``: dense on ``"fused"`` (the default), sparse on
+   ``"pallas_tiled"`` (``prefilter_k=24, patch_k=16``), dense on
+   ``"pallas"``; then dense ``"fused"`` once more with the oracle depth
+   track, which loads the match path.  Each run must launch its kernel,
+   keep its state on the card, and agree with the same run on ``"ref"``
+   (counters exact; a differing decision must be traced to a score within
+   1e-5 of its threshold).
+
+It then prints one JSON line ``{"kernels": [...]}``, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+N_FRAMES = 96
+CHUNK = 8
+TAU, O_MIN, C_MIN = 0.08, 0.5, 0.6  # EPICConfig() thresholds
+SCORE_TOL, BBOX_TOL = 1e-5, 1e-3
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Arithmetic per warped pixel in csrc/reproject_match.cu: lift 6, rigid
+# transform 18, projection 6, window-local coordinates and floor 6,
+# bilinear weights 6, three channels of 4-tap sample and |difference| 30,
+# channel mean 1, masked sum 1.
+FLOP_PER_PIXEL = 74
+FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
+
+KERNELS = {  # wrapper name -> the TPU kernel it replaces
+    "reproject_match_pallas":
+        "src/repro/kernels/reproject_match/kernel.py:204",
+    "reproject_match_pallas_tiled":
+        "src/repro/kernels/reproject_match/kernel.py:313",
+    "reproject_match_fused":
+        "src/repro/kernels/reproject_match/fused.py:121",
+}
+SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
+
+
+def _need(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: card and build.
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_build(torch) -> None:
+    from repro_torch.kernels.reproject_match import _build
+
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # same convolutions each run
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"[1] built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("    " + line.strip())
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: each kernel against its plain version.
+# ---------------------------------------------------------------------------
+
+
+def make_inputs(torch, device, n, p, hw, seed):
+    """Entries for one frame: a third cut from the (smooth) frame and
+    moved slightly, so that they match; the rest random content and
+    motion.  Returns ``(args, intr)``."""
+    import numpy as np
+
+    from repro_torch.core import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
+    frame = np.stack(
+        [0.5 + 0.4 * np.sin(xx / 9.0 + k) * np.cos(yy / 11.0 - k)
+         for k in range(3)], -1,
+    )
+    g = hw // p
+    cells = rng.integers(0, g * g, n)
+    origin = np.stack([(cells // g) * p, (cells % g) * p], -1)
+    rgb = rng.uniform(size=(n, p, p, 3))
+    depth = rng.uniform(1.0, 4.0, size=(n, p, p))
+    angles = rng.normal(scale=0.05, size=(n, 3))
+    trans = rng.normal(scale=0.1, size=(n, 3))
+    same = np.arange(n) % 3 == 0
+    for i in np.flatnonzero(same):
+        oy, ox = origin[i]
+        rgb[i] = frame[oy:oy + p, ox:ox + p]
+    angles[same] *= 0.02
+    trans[same] *= 0.2
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    t_rel = geo.pose_from_rt(geo.rotation_xyz(t(angles)), t(trans))
+    intr = geo.Intrinsics.create(0.8 * hw, hw / 2.0, hw / 2.0, device)
+    return [t(rgb), t(depth), t(origin), t_rel.contiguous(), t(frame)], intr
+
+
+def edge_inputs(torch, device, p=16, hw=128):
+    """All pixels behind the camera; the top rows behind (invalid bbox,
+    valid pixels); windows clamped at the four frame corners; a valid bbox
+    with no pixel in its window (nvalid == 0)."""
+    import numpy as np
+
+    from repro_torch.core import geometry as geo
+
+    trans = np.array(
+        [[0, 0, -10], [0, 0, -1], [-0.1, -0.1, 0], [0.1, -0.1, 0],
+         [-0.1, 0.1, 0], [0.1, 0.1, 0], [6, 0, 0]], np.float32,
+    )
+    n = len(trans)
+    t_rel = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    t_rel[:, :3, 3] = trans
+    origin = np.array(
+        [[56, 56], [56, 56], [0, 0], [0, hw - p], [hw - p, 0],
+         [hw - p, hw - p], [56, 56]], np.float32,
+    )
+    depth = np.ones((n, p, p), np.float32)
+    depth[1] = np.linspace(0.5, 1.5, p, dtype=np.float32)[:, None]
+    rng = np.random.default_rng(3)
+    rgb = rng.uniform(size=(n, p, p, 3)).astype(np.float32)
+    frame = rng.uniform(size=(hw, hw, 3)).astype(np.float32)
+    args = [torch.as_tensor(a, device=device)
+            for a in (rgb, depth, origin, t_rel, frame)]
+    return args, geo.Intrinsics.create(0.8 * hw, hw / 2.0, hw / 2.0, device)
+
+
+def check_kernels(torch, args, intr, window, label):
+    """Hold the three launches against the plain version; returns the
+    largest |kernel - plain| over diff, coverage and bbox."""
+    from repro_torch.core import geometry as geo
+    from repro_torch.kernels.reproject_match.fused import (
+        patch_grid_origins, reproject_match_fused)
+    from repro_torch.kernels.reproject_match.kernel import (
+        reproject_match_pallas, reproject_match_pallas_tiled)
+    from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+
+    plain = reproject_match_ref(*args, intr, window)
+    a = reproject_match_pallas(*args, intr, window=window)
+    b = reproject_match_pallas_tiled(*args, intr, window=window)
+    fd, fc, fb, pair, ovok = reproject_match_fused(
+        *args, intr, window=window, tau=TAU, o_min=O_MIN, c_min=C_MIN
+    )
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, (fd, fc, fb)):
+        _need(torch.equal(x, y) and torch.equal(x, z),
+              f"{label}: the three launches differ")
+    errs = [float((x - y).abs().max()) if x.numel() else 0.0
+            for x, y in zip(a, plain)]
+    _need(errs[0] <= SCORE_TOL and errs[1] <= SCORE_TOL
+          and errs[2] <= BBOX_TOL, f"{label}: kernel vs plain {errs}")
+
+    p = args[0].shape[1]
+    frame = args[4]
+    origins = patch_grid_origins(frame.shape[0], frame.shape[1], p,
+                                 frame.device)
+
+    def rows(diff, cov, bbox):
+        ov = geo.bbox_overlap_fraction(bbox[:, None], origins[None], p)
+        ok = ((diff <= TAU) & (cov >= C_MIN))[:, None] & (ov >= O_MIN)
+        return ok, ov >= O_MIN, ov
+
+    own_pair, own_ov, _ = rows(fd, fc, fb)
+    _need(torch.equal(pair, own_pair) and torch.equal(ovok, own_ov),
+          f"{label}: fused rows differ from its own thresholded scores")
+    ref_pair, ref_ov, ov = rows(*plain)
+    near = (((plain[0] - TAU).abs() <= SCORE_TOL)
+            | ((plain[1] - C_MIN).abs() <= SCORE_TOL))[:, None] | (
+        (ov - O_MIN).abs() <= SCORE_TOL)
+    flips = (pair != ref_pair) | (ovok != ref_ov)
+    _need(not bool((flips & ~near).any()),
+          f"{label}: fused rows differ from the thresholded plain scores")
+    torch.cuda.synchronize()
+    print(f"[2] {label}: N={args[0].shape[0]} P={p} "
+          f"frame={tuple(frame.shape[:2])} window={window} "
+          f"max|err| diff={errs[0]:.3g} cov={errs[1]:.3g} bbox={errs[2]:.3g}"
+          f" matches={int(pair.sum())} near-threshold flips="
+          f"{int(flips.sum())}")
+    return max(errs)
+
+
+def phase_kernels(torch, device):
+    errs = {}
+    args, intr = make_inputs(torch, device, 192, 16, 128, SEED)
+    errs["main"] = check_kernels(torch, args, intr, 32, "main N=192")
+    args, intr = make_inputs(torch, device, 24, 16, 128, SEED + 1)
+    errs["sparse"] = check_kernels(torch, args, intr, 32, "sparse K=24")
+    for n in (1, 7, 13):
+        args, intr = make_inputs(torch, device, n, 16, 128, n)
+        check_kernels(torch, args, intr, 32, f"N={n}")
+    args, intr = make_inputs(torch, device, 64, 16, 128, 5)
+    check_kernels(torch, args, intr, 64, "window 64")
+    args, intr = make_inputs(torch, device, 16, 16, 256, 6)
+    check_kernels(torch, args, intr, 64, "256x256 frame")
+    args, intr = make_inputs(torch, device, 9, 32, 256, 7)
+    check_kernels(torch, args, intr, 64, "patch 32")
+    for window in (16, 32, 64):
+        args, intr = edge_inputs(torch, device)
+        check_kernels(torch, args, intr, window, f"edge cases w={window}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: times.
+# ---------------------------------------------------------------------------
+
+
+def device_ms(torch, fn, per_graph=50, replays=20):
+    """Device time of one ``fn()``: a CUDA graph of ``per_graph`` calls,
+    replayed ``replays`` times between CUDA events (host overhead out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (per_graph * replays)
+
+
+def bound(args, fused: bool):
+    """Least time on the card: ``(ms, "bytes" | "operations")``."""
+    rgb, depth, origin, t_rel, frame = args
+    n, p = rgb.shape[0], rgb.shape[1]
+    m = (frame.shape[0] // p) * (frame.shape[1] // p)
+    nbytes = sum(t.numel() * 4 for t in args) + 3 * 4 + n * 8 * 4
+    flops = n * p * p * FLOP_PER_PIXEL
+    if fused:
+        nbytes += 2 * n * m  # the two bool rows
+        flops += n * m * FLOP_PER_PAIR
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_times(torch, device):
+    from repro_torch.kernels.reproject_match import fused, kernel, ref
+
+    times = {}
+    for name, n in (("reproject_match_pallas", 192),
+                    ("reproject_match_pallas_tiled", 24),
+                    ("reproject_match_fused", 192)):
+        args, intr = make_inputs(torch, device, n, 16, 128, SEED)
+        if name == "reproject_match_fused":
+            def k_fn():
+                fused.reproject_match_fused(*args, intr, window=32, tau=TAU,
+                                            o_min=O_MIN, c_min=C_MIN)
+
+            def p_fn():
+                fused.reproject_match_fused_ref(*args, intr, window=32,
+                                                tau=TAU, o_min=O_MIN,
+                                                c_min=C_MIN)
+        else:
+            wrapper = getattr(kernel, name)
+
+            def k_fn():
+                wrapper(*args, intr, window=32)
+
+            def p_fn():
+                ref.reproject_match_ref(*args, intr, 32)
+
+        ms, plain_ms = device_ms(torch, k_fn), device_ms(torch, p_fn)
+        bound_ms, bound_by = bound(args, name == "reproject_match_fused")
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        print(f"[3] {name}: N={n} kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by})")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path.
+# ---------------------------------------------------------------------------
+
+
+def state_leaves(state):
+    return [*state.bypass, *state.buf, state.t]
+
+
+def trace_flip(torch, cfg, models, state, chunk, kernel_backend):
+    """Replay a chunk frame by frame from ``state`` on both backends; at
+    the first frame whose stats differ, show that every differing decision
+    comes from a score within 1e-5 of its threshold.  Returns the message."""
+    from repro_torch.core import geometry as geo
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.kernels.reproject_match.kernel import (
+        reproject_match_pallas)
+    from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+
+    kcfg, rcfg = cfg, cfg._replace(backend="ref")
+    for i in range(chunk.n_frames):
+        x = (chunk.frames[i], chunk.poses[i], chunk.gazes[i],
+             None if chunk.depth is None else chunk.depth[i])
+        ks, kst = pipe.process_frame(state, *x, models, kcfg)
+        _, rst = pipe.process_frame(state, *x, models, rcfg)
+        if all(torch.equal(a, b) for a, b in zip(kst, rst)):
+            state = ks
+            continue
+        buf = state.buf
+        intr = cfg.intrinsics(buf.rgb.device)
+        t_rel = (geo.invert_pose(chunk.poses[i]) @ buf.pose).contiguous()
+        args = (buf.rgb, buf.depth, buf.origin, t_rel, chunk.frames[i], intr)
+        pd, pc, pb = reproject_match_ref(*args, cfg.window)
+        kd, kc, kb = reproject_match_pallas(*args, window=cfg.window)
+        differ = (((pd <= cfg.tau) != (kd <= cfg.tau))
+                  | ((pc >= cfg.c_min) != (kc >= cfg.c_min))) & buf.valid
+        near = (((pd - cfg.tau).abs() <= SCORE_TOL)
+                | ((pc - cfg.c_min).abs() <= SCORE_TOL))
+        _need(bool(differ.any()) and not bool((differ & ~near).any()),
+              f"{kernel_backend}: frame {i} of the chunk differs from ref "
+              "with no near-threshold score to explain it")
+        idx = torch.nonzero(differ).flatten().tolist()
+        return (f"flip at chunk frame {i}: entries {idx} diff "
+                f"{pd[idx].tolist()} (kernel {kd[idx].tolist()}) coverage "
+                f"{pc[idx].tolist()} (kernel {kc[idx].tolist()})")
+    raise AssertionError(f"{kernel_backend}: chunk differs but no frame does")
+
+
+def run_session(torch, comp, stream, device):
+    """Ingest the stream in chunks; returns (state, stats, pre-chunk
+    states, chunks, seconds)."""
+    from repro_torch.api import SensorChunk, concat_stats, iter_chunks
+
+    state = comp.init()
+    stats, befores, chunks = [], [], []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for chunk in iter_chunks(SensorChunk(*stream), CHUNK):
+        befores.append(state)
+        chunks.append(chunk)
+        state, cs = comp.step(state, chunk)
+        stats.append(cs)
+    torch.cuda.synchronize(device)
+    return (state, concat_stats(stats), befores, chunks,
+            time.perf_counter() - t0)
+
+
+def main_path_inputs(torch, device, n_frames=N_FRAMES):
+    """The main path's stream and networks, all made from ``SEED``:
+    ``(stream, depth_track, models)``; ``stream`` is (frames, poses,
+    gazes) of ``StreamConfig()`` at 128x128."""
+    import numpy as np
+
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.core import hir as hir_mod
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.data import synthetic
+
+    scfg = synthetic.StreamConfig(n_frames=n_frames, hw=(128, 128))
+    s, _ = synthetic.generate_stream(np.random.default_rng(SEED), scfg,
+                                     device=device)
+    hir = hir_mod.init_params(
+        torch.Generator(device=device).manual_seed(SEED + 1))
+    with torch.no_grad():
+        # Random weights put most logits on one side of 0; centre the
+        # last bias on the first chunk's median logit, so that about
+        # half of the patches are salient.
+        logits = hir(depth_mod.resize_image(s.frames[:CHUNK], 64),
+                     hir_mod.gaze_heatmap(s.gazes[:CHUNK], 64, scfg.hw),
+                     pipe.EPICConfig().grid)
+        hir.b3 -= logits.median()
+    models = pipe.EPICModels(
+        depth_model=depth_mod.init_params(
+            torch.Generator(device=device).manual_seed(SEED)),
+        hir_model=hir,
+    )
+    return (s.frames, s.poses, s.gazes), s.depth, models
+
+
+def phase_main_path(torch, device, n_frames=N_FRAMES):
+    """The main-path runs; returns each kernel's launch count."""
+    from repro_torch.api import EPICCompressor, SensorChunk
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.kernels.reproject_match import fused, kernel
+
+    wrappers = {
+        "reproject_match_pallas": kernel.reproject_match_pallas,
+        "reproject_match_pallas_tiled": kernel.reproject_match_pallas_tiled,
+        "reproject_match_fused": fused.reproject_match_fused,
+    }
+    stream, depth_track, models = main_path_inputs(torch, device, n_frames)
+    cfg0 = pipe.EPICConfig()
+    _need(cfg0.backend == "fused", "the default backend is not the kernel")
+
+    # Warm-up (cuDNN, allocator) on one chunk, not counted.
+    warm = EPICCompressor(cfg0._replace(backend="ref"), models, device=device)
+    warm.step(warm.init(), SensorChunk(*(x[:CHUNK] for x in stream)))
+
+    # The random depth network warps wrongly, so the main path matches
+    # few patches; a last run with the oracle depth track loads the match
+    # path (popularity bumps, newest-first choice) on the card as well.
+    oracle = models._replace(depth_model=None)
+    launches = {}
+    for run, kw, name, run_models, run_stream in (
+        ("fused", dict(backend="fused"), "reproject_match_fused", models,
+         stream),
+        ("pallas_tiled", dict(backend="pallas_tiled", prefilter_k=24,
+                              patch_k=16), "reproject_match_pallas_tiled",
+         models, stream),
+        ("pallas", dict(backend="pallas"), "reproject_match_pallas", models,
+         stream),
+        ("fused, oracle depth", dict(backend="fused"),
+         "reproject_match_fused", oracle, stream + (depth_track,)),
+    ):
+        cfg = cfg0._replace(**kw)
+        for w in wrappers.values():
+            w.launches = 0
+        comp = EPICCompressor(cfg, run_models, device=device)
+        state, stats, befores, chunks, secs = run_session(
+            torch, comp, run_stream, device)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        launches.setdefault(name, counts[name])
+        processed = int(stats.processed.sum())
+        _need(counts[name] > 0, f"{run}: {name} was never launched")
+        _need(all(t.device == device for t in state_leaves(state)),
+              f"{run}: state left the card")
+        _need(all(bool(torch.isfinite(t).all()) for t in state_leaves(state)
+                  if t.dtype.is_floating_point), f"{run}: non-finite state")
+        exported = comp.export(state)
+        _need(tuple(exported.rgb.shape) == (cfg.capacity, 16, 16, 3),
+              f"{run}: export shape {tuple(exported.rgb.shape)}")
+
+        ref_comp = EPICCompressor(cfg._replace(backend="ref"), run_models,
+                                  device=device)
+        rstate, rstats, _, _, rsecs = run_session(
+            torch, ref_comp, run_stream, device)
+        verdict = "counters and state equal to ref"
+        for c, (before, chunk) in enumerate(zip(befores, chunks)):
+            sl = slice(c * CHUNK, (c + 1) * CHUNK)
+            if not all(torch.equal(a[sl], b[sl])
+                       for a, b in zip(stats, rstats)
+                       if a.dtype != torch.float32):
+                verdict = trace_flip(torch, cfg, run_models, before, chunk,
+                                     run)
+                break
+        else:
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(state_leaves(state), state_leaves(rstate))]
+            _need(max(errs) <= SCORE_TOL,
+                  f"{run}: state differs from ref by {max(errs)}")
+        print(
+            f"[4] {run}: {n_frames / secs:.1f} frames/s (ref "
+            f"{n_frames / rsecs:.1f}), processed {processed}/{n_frames}, "
+            f"matched {int(stats.n_matched.sum())}, inserted "
+            f"{int(stats.n_inserted.sum())}, occupancy "
+            f"{int(stats.buffer_valid[-1])}/{cfg.capacity}, full checks "
+            f"{int(stats.n_full_checks.sum())}, prefilter overflow "
+            f"{int(stats.n_prefilter_overflow.sum())}, launches {counts} "
+            f"({counts[name] / max(processed, 1):.2f} per processed frame); "
+            f"{verdict}"
+        )
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    phase_build(torch)
+    errs = phase_kernels(torch, device)
+    times = phase_times(torch, device)
+    launches = phase_main_path(torch, device)
+
+    rows = []
+    for name, replaces in KERNELS.items():
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=errs["sparse" if "tiled" in name else "main"],
+            library_ms=None, **times[name],
+        ))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Carry the JAX package's parameters across to the port's modules.
+
+The JAX package keeps parameters as pytrees of HWIO arrays
+(``depth.init_params``, ``hir.init_params``); the port keeps them in
+``nn.Module``s, OIHW.  These functions take those pytrees as numpy arrays
+(``jax.tree.map(np.asarray, params)``) and return the port's networks
+with the same weights:
+
+* a 3x3 or 1x1 kernel ``(kh, kw, cin, cout)`` -> ``(cout, cin, kh, kw)``;
+* a depthwise kernel ``(3, 3, 1, cin)`` -> ``(cin, 1, 3, 3)``, run with
+  ``groups=cin`` — the same transpose.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core.depth import DepthNet
+from repro_torch.core.hir import HIRNet
+
+
+def hwio_to_oihw(w) -> torch.Tensor:
+    """``(kh, kw, cin, cout)`` -> ``(cout, cin, kh, kw)`` float32."""
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(w, np.float32).transpose(3, 2, 0, 1))
+    )
+
+
+def _load(module: nn.Module, name: str, value) -> None:
+    param = getattr(module, name)
+    v = np.asarray(value, np.float32)
+    t = hwio_to_oihw(v) if v.ndim == 4 else torch.from_numpy(v.copy())
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(
+            f"{name}: shape {tuple(t.shape)} does not fit {tuple(param.shape)}"
+        )
+    with torch.no_grad():
+        param.copy_(t)
+
+
+def depth_from_jax(params: Mapping[str, Mapping[str, np.ndarray]],
+                   device=None) -> DepthNet:
+    """A :class:`DepthNet` holding ``repro.core.depth`` parameters."""
+    device = resolve_device(device)
+    model = DepthNet(torch.Generator(device=device))
+    if set(params) != set(model.layers):
+        raise ValueError(
+            f"layers {sorted(params)} do not match {sorted(model.layers)}"
+        )
+    for name, layer in params.items():
+        for key, value in layer.items():
+            _load(model.layers[name], key, value)
+    return model
+
+
+def hir_from_jax(params: Mapping[str, np.ndarray], device=None) -> HIRNet:
+    """An :class:`HIRNet` holding ``repro.core.hir`` parameters."""
+    device = resolve_device(device)
+    model = HIRNet(torch.Generator(device=device))
+    for key, value in params.items():
+        _load(model, key, value)
+    return model

@@ -1,0 +1,143 @@
+"""Fused TSRC match on the card: warp + match + thresholds + update mask.
+
+Port of ``repro/kernels/reproject_match/fused.py``.  One CTA per DC-buffer
+entry emits, in one pass, the ``[diff, coverage, bbox]`` row (bitwise the
+``"pallas"`` launch's: both run the same device function) plus two rows
+over the frame's implicit row-major ``(H/P) x (W/P)`` patch grid:
+
+  * the **overlap row**: bbox overlap fraction >= ``o_min`` per patch,
+  * the **update-mask row**: overlap AND ``diff <= tau`` AND
+    ``coverage >= c_min``.
+
+The kernel writes both rows as ``bool`` directly.  Registration: the
+standard-contract backend registers as ``"fused"`` and carries the
+whole-step entry point as its ``fused_match`` attribute, which
+``tsrc_step`` reads with ``getattr``.  The entry axis is any length, so
+the sparse prefilter feeds it the gathered ``(K, ...)`` candidate slabs.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import Tensor
+
+from repro_torch.api.registry import register_backend
+from repro_torch.core import geometry as geo
+from repro_torch.kernels.reproject_match import _build
+from repro_torch.kernels.reproject_match.kernel import (
+    check_inputs,
+    launch_pointers,
+    split_rows,
+    stream_of,
+)
+from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+
+
+def patch_grid_origins(h: int, w: int, patch: int, device) -> Tensor:
+    """``(M, 2)`` top-left (row, col) of the row-major patch grid, in the
+    order of ``tsrc.extract_patches``."""
+    oy, ox = torch.meshgrid(
+        torch.arange(h // patch, dtype=torch.float32, device=device) * patch,
+        torch.arange(w // patch, dtype=torch.float32, device=device) * patch,
+        indexing="ij",
+    )
+    return torch.stack([oy.reshape(-1), ox.reshape(-1)], dim=-1)
+
+
+def reproject_match_fused_ref(
+    entry_rgb: Tensor,
+    entry_depth: Tensor,
+    entry_origin: Tensor,
+    t_rel: Tensor,
+    frame: Tensor,
+    intr: geo.Intrinsics,
+    *,
+    window: int,
+    tau: float,
+    o_min: float,
+    c_min: float,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain fused version: the plain scores, thresholded in PyTorch."""
+    diff, coverage, bbox = reproject_match_ref(
+        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
+    )
+    p = entry_rgb.shape[1]
+    origins = patch_grid_origins(frame.shape[0], frame.shape[1], p, frame.device)
+    overlap_ok = (
+        geo.bbox_overlap_fraction(bbox[:, None, :], origins[None], p) >= o_min
+    )
+    entry_ok = (diff <= tau) & (coverage >= c_min)
+    return diff, coverage, bbox, entry_ok[:, None] & overlap_ok, overlap_ok
+
+
+def reproject_match_fused(
+    entry_rgb: Tensor,  # (N, P, P, 3)
+    entry_depth: Tensor,  # (N, P, P)
+    entry_origin: Tensor,  # (N, 2)
+    t_rel: Tensor,  # (N, 4, 4)
+    frame: Tensor,  # (H, W, 3)
+    intr: geo.Intrinsics,
+    *,
+    window: int = 64,
+    tau: float = 0.08,
+    o_min: float = 0.5,
+    c_min: float = 0.6,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Fused TSRC match: one kernel pass per DC-buffer entry.
+
+    Replaces ``repro/kernels/reproject_match/fused.py ::
+    reproject_match_fused``.
+
+    Returns:
+      diff (N,), coverage (N,), bbox (N, 4),
+      pair_ok (N, M) bool — overlap AND the diff/coverage thresholds (the
+        caller still ANDs buffer validity and saliency),
+      overlap_ok (N, M) bool — the bare bbox-overlap bits.
+    """
+    n, p, h, w, device = check_inputs(
+        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
+    )
+    if device.type == "cpu":
+        return reproject_match_fused_ref(
+            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr,
+            window=window, tau=tau, o_min=o_min, c_min=c_min,
+        )
+    m = (h // p) * (w // p)
+    out = torch.empty((n, 8), dtype=torch.float32, device=device)
+    match = torch.empty((n, m), dtype=torch.bool, device=device)
+    ovok = torch.empty((n, m), dtype=torch.bool, device=device)
+    if n:
+        _keep, ptrs = launch_pointers(
+            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
+        )
+        err = _build.library().rm_fused_launch(
+            *ptrs, out.data_ptr(), match.data_ptr(), ovok.data_ptr(),
+            n, p, window, h, w, tau, o_min, c_min, stream_of(device),
+        )
+        _build.check(err, "rm_fused_launch")
+        reproject_match_fused.launches += 1
+    diff, coverage, bbox = split_rows(out)
+    return diff, coverage, bbox, match, ovok
+
+
+reproject_match_fused.launches = 0
+
+
+@register_backend("fused")
+def _fused_backend(
+    entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, *, window
+):
+    """Standard reproject-match contract (diff, coverage, bbox) served by
+    the fused kernel — the thresholds do not affect these outputs."""
+    diff, coverage, bbox, _, _ = reproject_match_fused(
+        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr,
+        window=window,
+    )
+    return diff, coverage, bbox
+
+
+# Capability attribute: tsrc_step detects it and runs the whole match
+# (thresholds + update mask) as one kernel — see core/tsrc.py.
+_fused_backend.fused_match = reproject_match_fused

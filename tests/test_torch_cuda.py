@@ -1,0 +1,98 @@
+"""The reproject-match CUDA kernel on the card (marked ``cuda``; skipped
+without a card).  Imports no JAX, so it runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import geometry as geo
+from repro_torch.kernels.reproject_match.fused import (
+    reproject_match_fused,
+    reproject_match_fused_ref,
+)
+from repro_torch.kernels.reproject_match.kernel import (
+    reproject_match_pallas,
+    reproject_match_pallas_tiled,
+)
+from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(device, n, p, hw, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    t_rel = geo.pose_from_rt(
+        geo.rotation_xyz(t(rng.normal(scale=0.05, size=(n, 3)))),
+        t(rng.normal(scale=0.1, size=(n, 3))),
+    ).contiguous()
+    args = [
+        t(rng.uniform(size=(n, p, p, 3))),
+        t(rng.uniform(1.0, 4.0, size=(n, p, p))),
+        t(rng.integers(0, hw - p, size=(n, 2))),
+        t_rel,
+        t(rng.uniform(size=(hw, hw, 3))),
+    ]
+    return args, geo.Intrinsics.create(0.8 * hw, hw / 2.0, hw / 2.0, device)
+
+
+@pytest.mark.parametrize(
+    "n,p,hw,window",
+    [(4, 16, 128, 32), (7, 16, 128, 64), (3, 32, 256, 64), (1, 8, 64, 16),
+     (13, 16, 128, 32), (192, 16, 128, 32)],
+)
+def test_launches_agree_with_each_other_and_the_plain_version(
+    device, n, p, hw, window
+):
+    args, intr = _inputs(device, n, p, hw, n * 7 + p)
+    counts = [w.launches for w in (reproject_match_pallas,
+                                   reproject_match_pallas_tiled,
+                                   reproject_match_fused)]
+    plain = reproject_match_fused_ref(*args, intr, window=window, tau=0.3,
+                                      o_min=0.5, c_min=0.6)
+    a = reproject_match_pallas(*args, intr, window=window)
+    b = reproject_match_pallas_tiled(*args, intr, window=window)
+    c = reproject_match_fused(*args, intr, window=window, tau=0.3,
+                              o_min=0.5, c_min=0.6)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c[:3]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert (a[0] - plain[0]).abs().max() <= 1e-5
+    assert (a[1] - plain[1]).abs().max() <= 1e-5
+    assert (a[2] - plain[2]).abs().max() <= 1e-3
+    assert torch.equal(c[3], plain[3]) and torch.equal(c[4], plain[4])
+    assert [w.launches for w in (reproject_match_pallas,
+                                 reproject_match_pallas_tiled,
+                                 reproject_match_fused)] == [
+        k + 1 for k in counts]
+
+
+def test_wrapper_rejects_a_non_contiguous_tensor(device):
+    args, intr = _inputs(device, 4, 16, 128, 0)
+    args[0] = args[0].transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        reproject_match_pallas(*args, intr, window=32)
+
+
+def test_empty_entry_axis_launches_nothing(device):
+    args, intr = _inputs(device, 0, 16, 128, 0)
+    before = reproject_match_pallas.launches
+    diff, cov, bbox = reproject_match_pallas(*args, intr, window=32)
+    assert diff.shape == (0,) and bbox.shape == (0, 4)
+    assert reproject_match_pallas.launches == before
+    assert reproject_match_ref(*args, intr, 32)[0].shape == (0,)

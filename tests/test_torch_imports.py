@@ -1,0 +1,140 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, its entry points refuse to fall back to the CPU, and its
+registries fail fast with the available names."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.api import registry
+from repro_torch.core import pipeline as tpipe
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_SUB_ENV = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+for _k in ("JAX_PLATFORMS", "XLA_FLAGS", "HOME"):
+    if _k in os.environ:
+        _SUB_ENV[_k] = os.environ[_k]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now fails
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+assert not leaked, leaked
+assert sys.modules["jax"] is None
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.strip())
+    assert n_modules == len(list(PORT.rglob("*.py"))) - 1  # minus __init__
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_jax_or_reference_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.api import EPICCompressor
+    from repro_torch.data import synthetic
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EPICCompressor(tpipe.EPICConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.generate_stream(None, synthetic.StreamConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.compress_stream(None, None, None, tpipe.EPICConfig())
+
+
+def test_default_backend_is_the_kernel():
+    assert tpipe.EPICConfig().backend == "fused"
+    assert tpipe.EPICConfig().tsrc_config().backend == "fused"
+
+
+@pytest.mark.parametrize(
+    "lookup,what",
+    [
+        (registry.get_backend, "kernel backend"),
+        (registry.get_stage, "frame stage"),
+        (registry.get_compressor, "compressor"),
+        (registry.get_combinator, "combinator"),
+    ],
+)
+def test_unknown_keys_list_the_available_names(lookup, what):
+    with pytest.raises(KeyError) as exc:
+        lookup("bogus")
+    msg = str(exc.value)
+    assert f"unknown {what} 'bogus'" in msg
+    for name in {
+        "kernel backend": ("fused", "pallas", "pallas_tiled", "ref"),
+        "frame stage": ("bypass", "depth", "saliency", "tsrc"),
+        "compressor": ("epic",),
+        "combinator": ("gated",),
+    }[what]:
+        assert repr(name) in msg
+
+
+def test_config_validation_fails_fast():
+    with pytest.raises(KeyError, match="pallas_tiled"):
+        tpipe.EPICConfig(backend="bogus")
+    with pytest.raises(KeyError):
+        tpipe.EPICConfig()._replace(backend="bogus")
+    with pytest.raises(ValueError):
+        tpipe.EPICConfig(prefilter_k=-1)
+    with pytest.raises(TypeError):
+        tpipe.EPICConfig(patch_k=1.5)
+    from repro_torch.api import EPICCompressor
+
+    with pytest.raises(NotImplementedError):
+        EPICCompressor(tpipe.EPICConfig(), device="cpu", k_ladder=(8, 16))
+
+
+def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
+    """``chip_smoke.py`` fails, and prints no result, without a CUDA card
+    and when it stands alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        out = subprocess.run(
+            [sys.executable, str(script)], env=_SUB_ENV, cwd=cwd,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
