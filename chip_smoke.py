@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. The card's name and power limit; TF32 off; the reproject-match CUDA
-   kernel built from ``src/repro_torch/kernels/reproject_match/csrc``.
+1. The card's name and power limit; TF32 off; the CUDA kernels built from
+   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel.
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
@@ -27,6 +27,24 @@ and prints no result line):
    keep its state on the card, and agree with the same run on ``"ref"``
    (counters exact; a differing decision must be traced to a score within
    1e-5 of its threshold).
+5. The flash-attention kernel against its plain version on the card, at
+   the main path's shape (q ``(4, 32, 1024, 64)``, kv heads 4, causal) in
+   bf16 and float32 and at edge shapes (S = 1, 100, 2048; head dims 8, 16,
+   128; MHA, MQA; non-causal): within 2e-5 in float32 and 3e-2 in bf16,
+   the reference's gates.
+6. Its time, its plain version's and ``F.scaled_dot_product_attention``'s
+   (the library yardstick, never called by the port) beside the bound.
+7. The EFM answer path at full width: TinyLlama-1.1B (22 layers, d_model
+   2048) with seeded random bf16 weights and ``attn_backend="pallas"``
+   prefills 4 prompts of 1024 seeded token ids (``jit_prefill``) and
+   decodes 32 greedy tokens (``greedy_decode_loop``): 22 flash launches
+   per prefill.  The same run on ``"ref"``, then both in float32.  In
+   float32 the logits agree within 1e-3 and the tokens are equal; in bf16
+   the prefill logits agree within 0.5 and a differing token must be
+   traced to a top-2 margin within 0.5 in both runs' logits.
+8. Where phase 7's bf16 ``"pallas"`` time goes: prefill and decode under
+   ``torch.profiler`` (device busy time, idle share, launches, time by
+   kernel).
 
 It then prints one JSON line ``{"kernels": [...]}``, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -50,6 +68,7 @@ SCORE_TOL, BBOX_TOL = 1e-5, 1e-3
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 # Arithmetic per warped pixel in csrc/reproject_match.cu: lift 6, rigid
 # transform 18, projection 6, window-local coordinates and floor 6,
 # bilinear weights 6, three channels of 4-tap sample and |difference| 30,
@@ -57,15 +76,32 @@ FP32_FLOP_PER_S = 67e12
 FLOP_PER_PIXEL = 74
 FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
 
-KERNELS = {  # wrapper name -> the TPU kernel it replaces
+RM_SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
     "reproject_match_pallas":
-        "src/repro/kernels/reproject_match/kernel.py:204",
+        ("src/repro/kernels/reproject_match/kernel.py:204", RM_SOURCE),
     "reproject_match_pallas_tiled":
-        "src/repro/kernels/reproject_match/kernel.py:313",
+        ("src/repro/kernels/reproject_match/kernel.py:313", RM_SOURCE),
     "reproject_match_fused":
-        "src/repro/kernels/reproject_match/fused.py:121",
+        ("src/repro/kernels/reproject_match/fused.py:121", RM_SOURCE),
+    "flash_attention_pallas":
+        ("src/repro/kernels/flash_attention/kernel.py:99", FA_SOURCE),
 }
-SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
+
+# Flash attention: the reference's gates (tests/test_kernels.py:182,196).
+FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# The EFM path (phase 7): TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 new.
+EFM_ARCH, EFM_BATCH, EFM_PROMPT, EFM_NEW = "tinyllama-1.1b", 4, 1024, 32
+# float32 "pallas" vs "ref": the kernel and the masked softmax sum in other
+# orders; 22 layers carry that to a few 1e-5 in logits of order 1 (4 layers
+# on the CPU: 7e-6).  1e-3 leaves room and still catches a wrong layer.
+F32_LOGIT_TOL = 1e-3
+# bf16: every layer rounds its activations to 8 bits, and "ref" rounds its
+# attention logits to bf16 where the kernel keeps them in f32 (4 layers on
+# the CPU: 0.055 in logits of std 1).  A differing greedy token must come
+# from two candidates within this margin in both runs' logits.
+BF16_LOGIT_TOL = 0.5
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -88,19 +124,27 @@ def card_line() -> str:
 
 
 def phase_build(torch) -> None:
-    from repro_torch.kernels.reproject_match import _build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention.kernel import LIBRARY as fa_lib
+    from repro_torch.kernels.reproject_match.kernel import LIBRARY as rm_lib
 
     torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # same convolutions each run
     torch.backends.cudnn.benchmark = False
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.library()
-    print(f"[1] built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("    " + line.strip())
+    libs = (rm_lib, fa_lib)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
+        paths = list(pool.map(lambda lib: lib.build(), libs))
+    for lib in libs:
+        lib.library()
+    print(f"[1] built {', '.join(p.name for p in paths)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for path in paths:
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {path.name.split('_')[0]}: " + line.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -428,17 +472,27 @@ def main_path_inputs(torch, device, n_frames=N_FRAMES):
     return (s.frames, s.poses, s.gazes), s.depth, models
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the name of its TPU kernel;
+    each counts its launches in ``.launches``."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+    from repro_torch.kernels.reproject_match import fused, kernel
+
+    return {
+        "reproject_match_pallas": kernel.reproject_match_pallas,
+        "reproject_match_pallas_tiled": kernel.reproject_match_pallas_tiled,
+        "reproject_match_fused": fused.reproject_match_fused,
+        "flash_attention_pallas": flash_attention_pallas,
+    }
+
+
 def phase_main_path(torch, device, n_frames=N_FRAMES):
     """The main-path runs; returns each kernel's launch count."""
     from repro_torch.api import EPICCompressor, SensorChunk
     from repro_torch.core import pipeline as pipe
-    from repro_torch.kernels.reproject_match import fused, kernel
 
-    wrappers = {
-        "reproject_match_pallas": kernel.reproject_match_pallas,
-        "reproject_match_pallas_tiled": kernel.reproject_match_pallas_tiled,
-        "reproject_match_fused": fused.reproject_match_fused,
-    }
+    wrappers = kernel_wrappers()
     stream, depth_track, models = main_path_inputs(torch, device, n_frames)
     cfg0 = pipe.EPICConfig()
     _need(cfg0.backend == "fused", "the default backend is not the kernel")
@@ -514,6 +568,324 @@ def phase_main_path(torch, device, n_frames=N_FRAMES):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: flash attention against its plain version.
+# ---------------------------------------------------------------------------
+
+
+def fa_inputs(torch, device, b, hq, hkv, s, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def phase_flash(torch, device):
+    """Returns the largest |kernel - plain| at the main path's shape in
+    bf16 (the path's dtype)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain)
+
+    main = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
+    cases = [
+        ("main", main),
+        ("S=1", (2, 8, 2, 1, 64, True)),
+        ("S=100", (2, 8, 2, 100, 64, True)),
+        ("S=2048", (1, 16, 2, 2048, 64, True)),
+        ("D=8", (2, 4, 2, 256, 8, True)),
+        ("D=16", (2, 4, 2, 256, 16, True)),
+        ("D=128 MHA", (2, 8, 8, 512, 128, True)),
+        ("MQA", (2, 8, 1, 256, 64, True)),
+        ("non-causal", (2, 8, 4, 384, 64, False)),
+        ("non-causal S=100 D=128", (1, 6, 2, 100, 128, False)),
+    ]
+    main_err = None
+    for i, (label, (b, hq, hkv, s, d, causal)) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = fa_inputs(torch, device, b, hq, hkv, s, d, dtype, i)
+            out = flash_attention_pallas(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            plain = flash_attention_plain(q, k, v, causal=causal)
+            _need(out.dtype == dtype and out.shape == q.shape,
+                  f"flash {label}: output {out.dtype} {tuple(out.shape)}")
+            _need(bool(torch.isfinite(out).all()),
+                  f"flash {label}: non-finite output")
+            err = float((out.float() - plain.float()).abs().max())
+            tol = FA_TOL[str(dtype).split(".")[1]]
+            _need(err <= tol, f"flash {label} {dtype}: kernel vs plain "
+                  f"{err} > {tol}")
+            if label == "main" and dtype == torch.bfloat16:
+                main_err = err
+            print(f"[5] flash {label}: q {(b, hq, s, d)} kv heads {hkv} "
+                  f"causal={causal} {str(dtype).split('.')[1]}: max|err| "
+                  f"{err:.3g} (tol {tol})")
+    return main_err
+
+
+def fa_bound(b, hq, hkv, s, d, causal, elem_bytes):
+    """Least time of one attention call: ``(ms, "bytes" | "operations",
+    flop)``.  q, k, v read once, o written once; 2 FLOP per multiply-add
+    of QK^T and of PV, over the key positions causal attention needs
+    (S (S + 1) / 2 pairs per head), at the bf16 tensor-core peak."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flop = 4 * b * hq * d * pairs
+    nbytes = (2 * b * hq + 2 * b * hkv) * s * d * elem_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", flop
+    return t_ops, "operations", flop
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: flash attention times.
+# ---------------------------------------------------------------------------
+
+
+def phase_flash_times(torch, device):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain)
+
+    shape = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
+    q, k, v = fa_inputs(torch, device, *shape[:5], torch.bfloat16, 0)
+    ms = device_ms(torch, lambda: flash_attention_pallas(q, k, v),
+                   per_graph=10)
+    plain_ms = device_ms(torch, lambda: flash_attention_plain(q, k, v),
+                         per_graph=5)
+    library_ms = device_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), per_graph=10)
+    bound_ms, bound_by, flop = fa_bound(*shape, 2)
+    print(f"[6] flash_attention_pallas: q {tuple(q.shape)} bf16, kv heads 4,"
+          f" causal: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+          f"us, scaled_dot_product_attention {library_ms * 1e3:.2f} us, "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {flop / 1e9:.2f} "
+          f"GFLOP at 989 TFLOP/s); kernel at "
+          f"{flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the EFM answer path.
+# ---------------------------------------------------------------------------
+
+
+def efm_run(torch, device, backend, dtype, wrappers):
+    """TinyLlama-1.1B on ``backend`` with all dtypes ``dtype``: a warm-up
+    prefill, then (counts set to 0) a timed prefill and 32 greedy tokens.
+    Returns a dict of the results and readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    cfg = get_config(EFM_ARCH).replace(
+        attn_backend=backend, param_dtype=dtype, compute_dtype=dtype,
+        cache_dtype=dtype)
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (EFM_BATCH, EFM_PROMPT)), device=device)
+    batch = {"tokens": tokens}
+    prefill = jit_prefill(model)
+
+    # Record each decode step's logits (for the token trace) while the
+    # loop runs through the model's own step.
+    steps = []
+
+    def decode_step(p, c, t, pos):
+        logits, c = model.decode_step(p, c, t, pos)
+        steps.append(logits[:, -1].float().clone())
+        return logits, c
+
+    recording = dataclasses.replace(model, decode_step=decode_step)
+
+    prefill(params, batch)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cache = {k: F.pad(c, (0, 0, 0, EFM_NEW)) for k, c in cache.items()}
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    out, cache = greedy_decode_loop(recording, params, cache, first,
+                                    EFM_PROMPT, EFM_NEW)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decode_launches = {k: w.launches - launches[k]
+                       for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    _need(tuple(logits.shape) == (EFM_BATCH, 1, cfg.vocab)
+          and logits.dtype == torch.float32, f"{backend} {dtype}: logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    _need(tuple(out.shape) == (EFM_BATCH, EFM_NEW + 1),
+          f"{backend} {dtype}: tokens {tuple(out.shape)}")
+    _need(int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{backend} {dtype}: token ids out of range")
+    step_logits = torch.stack(steps)  # (EFM_NEW, B, V)
+    _need(bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(step_logits).all()),
+          f"{backend} {dtype}: non-finite logits")
+    _need(tuple(cache["k"].shape) == (
+        cfg.n_layers, EFM_BATCH, cfg.n_kv_heads, EFM_PROMPT + EFM_NEW,
+        cfg.head_dim_) and cache["k"].dtype == cfg.cachedt,
+        f"{backend} {dtype}: cache {tuple(cache['k'].shape)}")
+    print(f"[7] {EFM_ARCH} {dtype} attn_backend={backend!r}: prefill "
+          f"{EFM_BATCH}x{EFM_PROMPT} tokens in {t_prefill * 1e3:.2f} ms "
+          f"({EFM_BATCH * EFM_PROMPT / t_prefill:.0f} tokens/s), decode "
+          f"{EFM_NEW} steps in {t_decode * 1e3:.2f} ms "
+          f"({EFM_BATCH * EFM_NEW / t_decode:.1f} tokens/s, "
+          f"{t_decode / EFM_NEW * 1e3:.2f} ms/step), peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in prefill {launches}, in "
+          f"decode {decode_launches}")
+    result = dict(logits=logits[:, -1], steps=step_logits, tokens=out,
+                  launches=launches)
+    del params, cache, model, recording
+    torch.cuda.empty_cache()
+    return result
+
+
+def trace_token_flips(kern, ref, label):
+    """At the first differing token of each prompt, both runs' logits that
+    chose it must put the two candidates within ``BF16_LOGIT_TOL``."""
+    notes = []
+    for b in range(EFM_BATCH):
+        diff = (kern["tokens"][b] != ref["tokens"][b]).nonzero().flatten()
+        if not len(diff):
+            continue
+        t = int(diff[0])  # t = 0 is the prefill's argmax
+        tk, tr = int(kern["tokens"][b, t]), int(ref["tokens"][b, t])
+        lk = kern["logits"][b] if t == 0 else kern["steps"][t - 1, b]
+        lr = ref["logits"][b] if t == 0 else ref["steps"][t - 1, b]
+        mk = float(lk[tk] - lk[tr])
+        mr = float(lr[tr] - lr[tk])
+        _need(0 <= mk <= BF16_LOGIT_TOL and 0 <= mr <= BF16_LOGIT_TOL,
+              f"{label}: prompt {b} token {t} differs ({tk} vs {tr}) with "
+              f"margins {mk}, {mr} above {BF16_LOGIT_TOL}")
+        notes.append(f"prompt {b} token {t}: {tk} vs {tr}, margins "
+                     f"{mk:.4f} / {mr:.4f}")
+    return notes
+
+
+def phase_efm(torch, device, wrappers):
+    """The EFM runs; returns the flash launches of the main path's run
+    (bf16, ``"pallas"``)."""
+    from repro_torch.configs import get_config
+
+    n_layers = get_config(EFM_ARCH).n_layers
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for backend in ("pallas", "ref"):
+            runs[dtype, backend] = efm_run(torch, device, backend, dtype,
+                                           wrappers)
+        kern, ref = runs[dtype, "pallas"], runs[dtype, "ref"]
+        _need(kern["launches"]["flash_attention_pallas"] == n_layers,
+              f"{dtype}: {kern['launches']['flash_attention_pallas']} flash "
+              f"launches in one prefill, not {n_layers}")
+        _need(ref["launches"]["flash_attention_pallas"] == 0,
+              f"{dtype}: the ref run launched the flash kernel")
+        err = float((kern["logits"] - ref["logits"]).abs().max())
+        same = bool(torch.equal(kern["tokens"], ref["tokens"]))
+        if dtype == "float32":
+            step_err = float((kern["steps"] - ref["steps"]).abs().max())
+            _need(same, f"float32: greedy tokens differ between the "
+                  f"backends:\n{kern['tokens']}\n{ref['tokens']}")
+            _need(max(err, step_err) <= F32_LOGIT_TOL,
+                  f"float32: logits differ by {err} (prefill), {step_err} "
+                  f"(decode) > {F32_LOGIT_TOL}")
+            print(f"[7] float32 pallas vs ref: max|d logits| prefill "
+                  f"{err:.3g}, decode steps {step_err:.3g} (tol "
+                  f"{F32_LOGIT_TOL}); greedy tokens equal")
+        else:
+            _need(err <= BF16_LOGIT_TOL, f"bfloat16: prefill logits differ "
+                  f"by {err} > {BF16_LOGIT_TOL}")
+            notes = trace_token_flips(kern, ref, "bfloat16")
+            n_diff = int((kern["tokens"] != ref["tokens"]).sum())
+            print(f"[7] bfloat16 pallas vs ref: max|d logits| prefill "
+                  f"{err:.3g} (tol {BF16_LOGIT_TOL}); greedy tokens "
+                  f"{'equal' if same else f'{n_diff} differ'}"
+                  + "".join(f"; {n}" for n in notes))
+    return runs["bfloat16", "pallas"]["launches"]["flash_attention_pallas"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: where the EFM path's time goes.
+# ---------------------------------------------------------------------------
+
+
+def phase_efm_profile(torch, device):
+    """Phase 7's bf16 ``"pallas"`` run under ``torch.profiler``: for the
+    prefill and the 32-step decode, a warm-up, a timed run (host clock, no
+    profiler) and a profiled run; prints wall time, device busy time (the
+    sum of the device-side events) and the idle share it leaves of the
+    unprofiled wall time, device launches, and the device time by kernel.
+    """
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    cfg = get_config(EFM_ARCH).replace(attn_backend="pallas")
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (EFM_BATCH, EFM_PROMPT)), device=device)}
+    prefill = jit_prefill(model)
+    logits, cache = prefill(params, batch)
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    padded = {k: F.pad(c, (0, 0, 0, EFM_NEW)) for k, c in cache.items()}
+
+    def run_decode():
+        state = {k: c.clone() for k, c in padded.items()}
+        greedy_decode_loop(model, params, state, first, EFM_PROMPT, EFM_NEW)
+
+    for name, fn, per, unit in (
+            ("prefill", lambda: prefill(params, batch), 1, "prefill"),
+            ("decode", run_decode, EFM_NEW, "step")):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in rows)
+        _need(busy_us > 0, f"profile of the {name}: no device time")
+        print(f"[8] {EFM_ARCH} bf16 {name}: wall {wall_us / per:.1f} "
+              f"us/{unit}, device busy {busy_us / per:.1f} us/{unit}, idle "
+              f"share {1 - busy_us / wall_us:.3f}, device launches "
+              f"{sum(e.count for e in rows) / per:.1f}/{unit}")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"    {e.self_device_time_total / per:10.1f} us/{unit} "
+                  f"{e.self_device_time_total / busy_us:6.1%} "
+                  f"{e.count:6d} x  {e.key[:70]}")
+    del params, cache, padded, model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -540,15 +912,21 @@ def main() -> int:
     errs = phase_kernels(torch, device)
     times = phase_times(torch, device)
     launches = phase_main_path(torch, device)
+    errs["flash"] = phase_flash(torch, device)
+    times["flash_attention_pallas"] = phase_flash_times(torch, device)
+    launches["flash_attention_pallas"] = phase_efm(torch, device,
+                                                   kernel_wrappers())
+    phase_efm_profile(torch, device)
 
     rows = []
-    for name, replaces in KERNELS.items():
-        rows.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[name],
-            max_abs_err=errs["sparse" if "tiled" in name else "main"],
-            library_ms=None, **times[name],
-        ))
+    for name, (replaces, source) in KERNELS.items():
+        err_key = ("flash" if name == "flash_attention_pallas" else
+                   "sparse" if "tiled" in name else "main")
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=launches[name], max_abs_err=errs[err_key],
+                   library_ms=None)
+        row.update(times[name])
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """EPIC in PyTorch for NVIDIA Hopper: the port of the JAX package ``repro``.
 
 The package mirrors ``src/repro`` file for file and imports nothing from
-it, nor JAX.  The reproject-match kernels are hand-written CUDA
-(``kernels/reproject_match/csrc``); everything else is plain PyTorch.
+it, nor JAX.  The reproject-match and flash-attention kernels are
+hand-written CUDA (``kernels/*/csrc``, built by ``kernels/_build.py``);
+everything else is plain PyTorch.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: :func:`resolve_device` raises when no card is present

@@ -9,6 +9,10 @@ with the same weights:
 * a 3x3 or 1x1 kernel ``(kh, kw, cin, cout)`` -> ``(cout, cin, kh, kw)``;
 * a depthwise kernel ``(3, 3, 1, cin)`` -> ``(cin, 1, 3, 3)``, run with
   ``groups=cin`` — the same transpose.
+
+The EFM models keep the reference's pytree layout (linear weights
+``(d_in, d_out)``, layer stacks with a leading ``L`` axis), so
+:func:`dense_from_jax` only checks the tree and moves its leaves.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.depth import DepthNet
 from repro_torch.core.hir import HIRNet
+from repro_torch.models import transformer
 
 
 def hwio_to_oihw(w) -> torch.Tensor:
@@ -65,3 +71,32 @@ def hir_from_jax(params: Mapping[str, np.ndarray], device=None) -> HIRNet:
     for key, value in params.items():
         _load(model, key, value)
     return model
+
+
+def _tree_from_jax(expected, got, path: str, device):
+    if isinstance(expected, dict):
+        if not isinstance(got, Mapping) or set(got) != set(expected):
+            keys = sorted(got) if isinstance(got, Mapping) else type(got)
+            raise ValueError(f"{path or '/'}: keys {keys} do not match "
+                             f"{sorted(expected)}")
+        return {k: _tree_from_jax(v, got[k], f"{path}/{k}", device)
+                for k, v in expected.items()}
+    a = np.asarray(got)
+    if a.shape != tuple(expected.shape):
+        raise ValueError(f"{path}: shape {a.shape} does not fit "
+                         f"{tuple(expected.shape)}")
+    # float32 holds every bf16 value exactly, so the round trip is exact.
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(device=device, dtype=expected.dtype)
+
+
+def dense_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The dense transformer's parameters (``repro.models.transformer``)
+    as the port's tree, in ``cfg.param_dtype`` on ``device``.
+
+    ``params_np`` is the JAX pytree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), with the stacked ``L`` axis.
+    """
+    device = resolve_device(device)
+    expected = transformer.init(None, cfg, torch.device("meta"))
+    return _tree_from_jax(expected, params_np, "", device)

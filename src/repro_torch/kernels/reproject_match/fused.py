@@ -25,8 +25,9 @@ from torch import Tensor
 
 from repro_torch.api.registry import register_backend
 from repro_torch.core import geometry as geo
-from repro_torch.kernels.reproject_match import _build
+from repro_torch.kernels._build import check
 from repro_torch.kernels.reproject_match.kernel import (
+    LIBRARY,
     check_inputs,
     launch_pointers,
     split_rows,
@@ -112,11 +113,11 @@ def reproject_match_fused(
         _keep, ptrs = launch_pointers(
             entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
         )
-        err = _build.library().rm_fused_launch(
+        err = LIBRARY.library().rm_fused_launch(
             *ptrs, out.data_ptr(), match.data_ptr(), ovok.data_ptr(),
             n, p, window, h, w, tau, o_min, c_min, stream_of(device),
         )
-        _build.check(err, "rm_fused_launch")
+        check(err, "rm_fused_launch")
         reproject_match_fused.launches += 1
     diff, coverage, bbox = split_rows(out)
     return diff, coverage, bbox, match, ovok

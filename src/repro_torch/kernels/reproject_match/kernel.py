@@ -14,14 +14,30 @@ anything else.  ``<wrapper>.launches`` counts its kernel launches.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import torch
 from torch import Tensor
 
 from repro_torch.core import geometry as geo
-from repro_torch.kernels.reproject_match import _build
+from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check
 from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+
+# --fmad=false: see the precision note in csrc/reproject_match.cu.
+LIBRARY = CudaLibrary(
+    "reproject_match",
+    Path(__file__).resolve().parent / "csrc",
+    {
+        # intr rgb depth origin trel frame out, n patch window h w, stream
+        "rm_pallas_launch": (PTR,) * 7 + (INT,) * 5 + (PTR,),
+        # ... out, n tile_n patch window h w, stream
+        "rm_tiled_launch": (PTR,) * 7 + (INT,) * 6 + (PTR,),
+        # ... out match ovok, n patch window h w, tau o_min c_min, stream
+        "rm_fused_launch": (PTR,) * 9 + (INT,) * 5 + (FLOAT,) * 3 + (PTR,),
+    },
+    flags=("--fmad=false",),
+)
 
 # Entries per CTA of the tiled launch (the Pallas kernel's entries per grid
 # step).
@@ -137,10 +153,10 @@ def reproject_match_pallas(
         _keep, ptrs = launch_pointers(
             entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
         )
-        err = _build.library().rm_pallas_launch(
+        err = LIBRARY.library().rm_pallas_launch(
             *ptrs, out.data_ptr(), n, p, window, h, w, stream_of(device)
         )
-        _build.check(err, "rm_pallas_launch")
+        check(err, "rm_pallas_launch")
         reproject_match_pallas.launches += 1
     return split_rows(out)
 
@@ -176,11 +192,11 @@ def reproject_match_pallas_tiled(
         _keep, ptrs = launch_pointers(
             entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
         )
-        err = _build.library().rm_tiled_launch(
+        err = LIBRARY.library().rm_tiled_launch(
             *ptrs, out.data_ptr(), n, TILE_N, p, window, h, w,
             stream_of(device),
         )
-        _build.check(err, "rm_tiled_launch")
+        check(err, "rm_tiled_launch")
         reproject_match_pallas_tiled.launches += 1
     return split_rows(out)
 

@@ -1,0 +1,5 @@
+"""repro_torch.serve — serving on the card.
+
+  jit_prefill, jit_decode_step, greedy_decode_loop   (efm)  the EFM
+                                                     prefill/decode steps
+"""

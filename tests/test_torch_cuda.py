@@ -1,5 +1,5 @@
-"""The reproject-match CUDA kernel on the card (marked ``cuda``; skipped
-without a card).  Imports no JAX, so it runs where JAX is not installed:
+"""The CUDA kernels on the card, reproject-match and flash attention
+(marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -96,3 +96,44 @@ def test_empty_entry_axis_launches_nothing(device):
     assert diff.shape == (0,) and bbox.shape == (0, 4)
     assert reproject_match_pallas.launches == before
     assert reproject_match_ref(*args, intr, 32)[0].shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the kernel against its plain version, at the reference's
+# gates (2e-5 in float32, 3e-2 in bf16; tests/test_kernels.py:182,196).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,causal",
+    [(1, 4, 4, 256, 64, True), (2, 8, 2, 256, 64, True),
+     (1, 4, 1, 128, 32, True), (1, 2, 2, 256, 64, False),
+     (2, 16, 2, 512, 128, True), (1, 4, 2, 100, 16, True),
+     (1, 2, 1, 1, 8, True), (4, 32, 4, 1024, 64, True)],
+)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_matches_its_plain_version(device, b, hq, hkv, s, d,
+                                                causal, dtype, tol):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain)
+
+    g = torch.Generator(device=device).manual_seed(b * 31 + hq + s)
+    q, k, v = [torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
+               for h in (hq, hkv, hkv)]
+    before = flash_attention_pallas.launches
+    out = flash_attention_pallas(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_pallas.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    assert float((out.float() - plain.float()).abs().max()) <= tol
+
+
+def test_flash_wrapper_rejects_a_non_contiguous_tensor(device):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+
+    q = torch.zeros(1, 64, 4, 64, device=device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_pallas(q, q, q)

@@ -1,0 +1,124 @@
+"""Flash attention in the PyTorch port against the JAX package.
+
+The same numpy inputs, made from a seed, go through the JAX package's
+``attention_ref`` and ``flash_attention_pallas(..., interpret=True)`` and
+through the port's plain version (what the kernel wrapper takes for CPU
+tensors) and its ``ops.attention`` dispatcher.  Tolerances are the
+reference's own gates (``tests/test_kernels.py``): 2e-5 in float32 (the
+two sum the softmax in different block orders, a few ulps of values of
+order 1), 3e-2 for bf16 inputs (a bf16 output rounds at 2^-8 relative).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import to_numpy, to_torch
+from repro.kernels.flash_attention.kernel import (
+    flash_attention_pallas as jax_flash,
+)
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_pallas,
+    flash_attention_plain,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+F32_TOL = 2e-5  # tests/test_kernels.py:182
+BF16_TOL = 3e-2  # tests/test_kernels.py:196
+
+
+def _qkv(seed, b, hq, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, s, d)).astype(np.float32)
+            for h in (hq, hkv, hkv)]
+
+
+# The reference's parametrisation (tests/test_kernels.py:161-172), plus
+# S < 128 and S = 1 (one block of the whole sequence) and head dims 8, 16.
+CASES = [
+    (1, 4, 4, 256, 64, True),
+    (2, 8, 2, 256, 64, True),  # GQA group 4
+    (1, 4, 1, 128, 32, True),  # MQA
+    (1, 2, 2, 256, 64, False),
+    (2, 16, 2, 512, 128, True),  # production-ish head geometry
+    (1, 4, 2, 100, 16, True),
+    (1, 2, 1, 1, 8, True),
+    (2, 6, 3, 64, 8, False),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", CASES)
+def test_kernel_contract_matches_jax(b, hq, hkv, s, d, causal):
+    q, k, v = _qkv(b * 31 + hq + s, b, hq, hkv, s, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(to_torch, (q, k, v))
+    ref = np.asarray(jax_ref(jq, jk, jv, causal=causal))
+    pal = np.asarray(jax_flash(jq, jk, jv, causal=causal, interpret=True))
+    plain = to_numpy(flash_attention_plain(tq, tk, tv, causal=causal))
+    launches = flash_attention_pallas.launches
+    wrapped = to_numpy(flash_attention_pallas(tq, tk, tv, causal=causal))
+    assert flash_attention_pallas.launches == launches  # CPU: plain version
+    np.testing.assert_array_equal(plain, wrapped)
+    np.testing.assert_allclose(plain, pal, atol=F32_TOL)
+    np.testing.assert_allclose(plain, ref, atol=F32_TOL)
+    for backend in ("ref", "pallas"):
+        out = ops.attention(tq, tk, tv, causal=causal, backend=backend)
+        np.testing.assert_allclose(to_numpy(out), ref, atol=F32_TOL)
+
+
+def test_ref_matches_jax_ref_in_bf16():
+    """The oracle forms its logits in the inputs' dtype, as the
+    reference's does; both then run an f32 softmax."""
+    q, k, v = _qkv(7, 1, 4, 2, 128, 64)
+    bf = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    ref = np.asarray(jax_ref(*bf), dtype=np.float32)
+    out = attention_ref(*[to_torch(np.asarray(x.astype(jnp.float32))).bfloat16()
+                          for x in bf])
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(to_numpy(out), ref, atol=BF16_TOL)
+
+
+def test_bf16_io_matches_jax():
+    """tests/test_kernels.py:186-199: bf16 in, bf16 out, f32 inside."""
+    q, k, v = _qkv(3, 1, 4, 4, 256, 64)
+    bf = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    exact = np.asarray(jax_ref(*[x.astype(jnp.float32) for x in bf]))
+    pal = np.asarray(jax_flash(*bf, interpret=True), dtype=np.float32)
+    tq, tk, tv = [to_torch(np.asarray(x.astype(jnp.float32))).bfloat16()
+                  for x in bf]
+    out = flash_attention_pallas(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    out = to_numpy(out.float())
+    np.testing.assert_allclose(out, exact, atol=BF16_TOL)
+    np.testing.assert_allclose(out, pal, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize(
+    "shapes,dtypes,error",
+    [
+        (((1, 4, 256, 64), (1, 3, 256, 64)), None, ValueError),  # 4 % 3
+        (((1, 4, 200, 64), (1, 2, 200, 64)), None, ValueError),  # S % 128
+        (((1, 4, 64, 64), (1, 2, 32, 64)), None, ValueError),  # k's S
+        (((4, 64, 64), (1, 2, 64, 64)), None, ValueError),  # 3-D q
+        (((1, 4, 64, 64), (1, 2, 64, 64)),
+         (torch.float32, torch.bfloat16), TypeError),
+        (((1, 4, 64, 64), (1, 2, 64, 64)),
+         (torch.float16, torch.float16), TypeError),
+    ],
+)
+def test_wrapper_rejects_what_the_contract_excludes(shapes, dtypes, error):
+    qs, ks = shapes
+    qd, kd = dtypes or (torch.float32, torch.float32)
+    q = torch.zeros(qs, dtype=qd)
+    k = torch.zeros(ks, dtype=kd)
+    with pytest.raises(error):
+        flash_attention_pallas(q, k, k)
+
+
+def test_dispatcher_rejects_an_unknown_backend():
+    q = torch.zeros(1, 2, 8, 8)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.attention(q, q, q, backend="bogus")
