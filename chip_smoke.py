@@ -45,6 +45,24 @@ and prints no result line):
 8. Where phase 7's bf16 ``"pallas"`` time goes: prefill and decode under
    ``torch.profiler`` (device busy time, idle share, launches, time by
    kernel).
+9. The int8 matmul kernel against its plain version on the card, exactly:
+   at the reference test's shapes, the all--128 case at K = 512, and the
+   eight products the int8 depth network hands it for one frame (its
+   operands recorded from a ``forward_int8`` call).
+10. Their times (CUDA graph replay between CUDA events) beside the plain
+   version's, ``torch._int_mm``'s on the shapes padded to what it takes
+   (the library yardstick, never called by the port) and the bound.
+11. EPIC's deployment path: ``EPICConfig()`` with phase 4's depth network
+   quantised to int8 on a ``depth_training_batch`` and the HIR network,
+   96 frames on ``"fused"``: with the kernel (8 launches per processed
+   frame), then with the depth network's ``int8_matmul`` on ``"ref"``
+   (the plain version, exact); counters and state bitwise equal; frames/s
+   and the depth stage's device time per processed frame beside the fp32
+   network's.
+12. The four baselines (``fv``, ``sd``, ``td``, ``gc``) and EPIC (phase
+   11's int8 run) on the same stream on the card: retained bytes, token
+   stream shape, and the energy model's Figure 6 energy and memory ratios
+   to FVS (``stream_counters``, ``core/energy.py``).
 
 It then prints one JSON line ``{"kernels": [...]}``, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -78,6 +96,7 @@ FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
 
 RM_SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
     "reproject_match_pallas":
         ("src/repro/kernels/reproject_match/kernel.py:204", RM_SOURCE),
@@ -87,6 +106,8 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/reproject_match/fused.py:121", RM_SOURCE),
     "flash_attention_pallas":
         ("src/repro/kernels/flash_attention/kernel.py:99", FA_SOURCE),
+    "int8_matmul_pallas":
+        ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
 }
 
 # Flash attention: the reference's gates (tests/test_kernels.py:182,196).
@@ -102,6 +123,21 @@ F32_LOGIT_TOL = 1e-3
 # the CPU: 0.055 in logits of std 1).  A differing greedy token must come
 # from two candidates within this margin in both runs' logits.
 BF16_LOGIT_TOL = 0.5
+INT8_OP_PER_S = 1979e12  # tensor cores, dense
+# int8 matmul: the reference test's shapes (tests/test_kernels.py:136-139)
+# and the products of the int8 depth network at its 64x64 input, per
+# processed frame: (layer, M, K, N).
+I8_TEST_SHAPES = ((128, 128, 128), (256, 384, 128), (130, 200, 70),
+                  (1, 9, 1), (64, 1, 64))
+DEPTH_GEMMS = (
+    ("enc0", 1024, 27, 16), ("enc1.pw", 256, 16, 32), ("enc2.pw", 64, 32, 64),
+    ("enc3.pw", 64, 64, 64), ("dec0.pw", 256, 64, 32),
+    ("dec1.pw", 1024, 32, 16), ("dec2.pw", 4096, 16, 16),
+    ("head", 4096, 144, 1),
+)
+# Baselines at EPIC's budget (EPICConfig().capacity patches; FV unbounded).
+BASELINE_BUDGET = 192
+TOKENS = 256
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -127,6 +163,7 @@ def phase_build(torch) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention.kernel import LIBRARY as fa_lib
+    from repro_torch.kernels.int8_matmul.kernel import LIBRARY as i8_lib
     from repro_torch.kernels.reproject_match.kernel import LIBRARY as rm_lib
 
     torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
@@ -134,7 +171,7 @@ def phase_build(torch) -> None:
     torch.backends.cudnn.deterministic = True  # same convolutions each run
     torch.backends.cudnn.benchmark = False
     t0 = time.perf_counter()
-    libs = (rm_lib, fa_lib)
+    libs = (rm_lib, fa_lib, i8_lib)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -144,7 +181,7 @@ def phase_build(torch) -> None:
     for path in paths:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"    {path.name.split('_')[0]}: " + line.strip())
+                print(f"    {path.name.rsplit('_', 1)[0]}: " + line.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +514,7 @@ def kernel_wrappers():
     each counts its launches in ``.launches``."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas)
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
     from repro_torch.kernels.reproject_match import fused, kernel
 
     return {
@@ -484,6 +522,7 @@ def kernel_wrappers():
         "reproject_match_pallas_tiled": kernel.reproject_match_pallas_tiled,
         "reproject_match_fused": fused.reproject_match_fused,
         "flash_attention_pallas": flash_attention_pallas,
+        "int8_matmul_pallas": int8_matmul_pallas,
     }
 
 
@@ -886,6 +925,300 @@ def phase_efm_profile(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 9-10: the int8 matmul kernel against its plain version; times.
+# ---------------------------------------------------------------------------
+
+
+def depth_operands(torch, q, rgb64):
+    """The ``(A, B)`` pairs one ``forward_int8`` hands the int8 matmul op,
+    recorded by wrapping the op for that call."""
+    from repro_torch.core import depth as depth_mod
+
+    ops, seen = depth_mod.int8_ops, []
+    inner = ops.int8_matmul
+
+    def record(a, b, *, backend="ref"):
+        seen.append((a.clone(), b.clone()))
+        return inner(a, b, backend=backend)
+
+    ops.int8_matmul = record
+    try:
+        depth_mod.forward_int8(q, rgb64)
+    finally:
+        ops.int8_matmul = inner
+    got = [(a.shape[0], a.shape[1], b.shape[1]) for a, b in seen]
+    _need(got == [g[1:] for g in DEPTH_GEMMS],
+          f"int8 depth products {got}, not {DEPTH_GEMMS}")
+    return seen
+
+
+def phase_int8(torch, device):
+    """Returns the depth network's operands for one frame and the largest
+    |kernel - plain|."""
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+
+    stream, _, models = main_path_inputs(torch, device, CHUNK)
+    q = quantised_models(torch, device, models).depth_model
+    rgb64 = depth_mod.resize_image(stream[0][:1], depth_mod.DEPTH_INPUT)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    cases = []
+    for m, k, n in I8_TEST_SHAPES:
+        cases.append((f"{m}x{k}x{n}", [
+            torch.randint(-128, 128, shape, generator=g, device=device,
+                          dtype=torch.int8) for shape in ((m, k), (k, n))]))
+    cases.append(("all -128, K=512", [
+        torch.full(shape, -128, dtype=torch.int8, device=device)
+        for shape in ((64, 512), (512, 64))]))
+    operands = depth_operands(torch, q, rgb64)
+    cases += [(name, ab) for (name, *_), ab in zip(DEPTH_GEMMS, operands)]
+    worst = 0
+    for label, (a, b) in cases:
+        out = int8_matmul_pallas(a, b)
+        torch.cuda.synchronize()
+        plain = int8_matmul_ref(a, b)
+        _need(out.dtype == torch.int32 and tuple(out.shape) == (
+            a.shape[0], b.shape[1]), f"int8 {label}: {out.dtype} "
+            f"{tuple(out.shape)}")
+        err = int((out.long() - plain.long()).abs().max())
+        _need(err == 0, f"int8 {label}: kernel differs from plain by {err}")
+        worst = max(worst, err)
+        print(f"[9] int8 {label}: M={a.shape[0]} K={a.shape[1]} "
+              f"N={b.shape[1]} equal to the plain version (|C| <= "
+              f"{int(plain.abs().max())})")
+    _need(int(int8_matmul_pallas(*cases[len(I8_TEST_SHAPES)][1])[0, 0])
+          == 512 * 128 * 128, "int8: the all -128 product is not 2^23")
+    return operands, worst
+
+
+def i8_bound(m, k, n):
+    """Least time of one product: ``(ms, "bytes" | "operations")``; A and B
+    read once as int8, C written once as int32; 2 operations per
+    multiply-add at the int8 tensor-core peak."""
+    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / INT8_OP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_int8_times(torch, device, operands):
+    """Per-launch times at the depth network's eight shapes; returns the
+    row's numbers summed over the eight (one processed frame)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    nbytes = flop = 0
+    for (name, m, k, n), (a, b) in zip(DEPTH_GEMMS, operands):
+        # torch._int_mm takes M > 16 and K, N multiples of 8 (K > 16 too,
+        # on some versions): zero-padded copies, made once, outside the
+        # timing.
+        kp, np_ = max(-(-k // 8) * 8, 24), -(-n // 8) * 8
+        ap = F.pad(a, (0, kp - k)).contiguous()
+        bp = F.pad(b, (0, np_ - n, 0, kp - k)).contiguous()
+        _need(torch.equal(torch._int_mm(ap, bp)[:, :n],
+                          int8_matmul_ref(a, b)),
+              f"int8 {name}: torch._int_mm on the padded shapes differs")
+        ms = device_ms(torch, lambda: int8_matmul_pallas(a, b))
+        plain_ms = device_ms(torch, lambda: int8_matmul_ref(a, b))
+        library_ms = device_ms(torch, lambda: torch._int_mm(ap, bp))
+        b_ms, b_by = i8_bound(m, k, n)
+        print(f"[10] int8 {name} ({m}x{k}x{n}): kernel {ms * 1e3:.2f} us, "
+              f"plain {plain_ms * 1e3:.2f} us, torch._int_mm "
+              f"({m}x{kp}x{np_}) {library_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.4f} us ({b_by})")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["library_ms"] += library_ms
+        nbytes += m * k + k * n + 4 * m * n
+        flop += 2 * m * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / INT8_OP_PER_S * 1e3
+    total["bound_ms"], total["bound_by"] = (
+        (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    print(f"[10] int8, the 8 products of one processed frame: kernel "
+          f"{total['ms'] * 1e3:.2f} us, plain {total['plain_ms'] * 1e3:.2f} "
+          f"us, torch._int_mm {total['library_ms'] * 1e3:.2f} us, bound "
+          f"{total['bound_ms'] * 1e3:.4f} us ({total['bound_by']}: "
+          f"{nbytes} bytes, {flop} operations)")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: EPIC's int8 deployment path.
+# ---------------------------------------------------------------------------
+
+
+def quantised_models(torch, device, models):
+    """Phase 4's networks with the depth network quantised to int8 on a
+    seeded ``depth_training_batch``."""
+    import numpy as np
+
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.data import synthetic
+
+    rgb64, _ = synthetic.depth_training_batch(
+        np.random.default_rng(SEED + 2),
+        synthetic.StreamConfig(hw=(128, 128)), CHUNK, device=device)
+    q = depth_mod.quantize_params(models.depth_model, rgb64)
+    return models._replace(depth_model=q)
+
+
+def phase_int8_main_path(torch, device, n_frames=N_FRAMES):
+    """The int8 compressor on the kernel and on the plain version; returns
+    the kernel run's ``(launches, (compressor, state, stats))``."""
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.core import pipeline as pipe
+
+    wrappers = kernel_wrappers()
+    stream, _, models = main_path_inputs(torch, device, n_frames)
+    qmodels = quantised_models(torch, device, models)
+    q = qmodels.depth_model
+    cfg = pipe.EPICConfig()
+    runs = {}
+    for label, run_models, backend in (
+            ("int8, kernel", qmodels, "pallas"),
+            ("int8, plain int8_matmul", qmodels, "ref"),
+            ("fp32", models, None)):
+        if backend is not None:
+            q.matmul_backend = backend
+        comp = EPICCompressor(cfg, run_models, device=device)
+        # Warm-up on one chunk, not counted.
+        run_session(torch, comp, tuple(x[:CHUNK] for x in stream), device)
+        for w in wrappers.values():
+            w.launches = 0
+        state, stats, _, _, secs = run_session(torch, comp, stream, device)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        frame = stream[0][0]
+        depth_ms = device_ms(
+            torch, lambda: depth_mod.predict_fullres(run_models.depth_model,
+                                                     frame), per_graph=20)
+        runs[label] = (comp, state, stats, counts)
+        processed = int(stats.processed.sum())
+        print(f"[11] {label}: {n_frames / secs:.1f} frames/s, processed "
+              f"{processed}/{n_frames}, depth stage {depth_ms * 1e3:.2f} us "
+              f"of device time per processed frame, int8_matmul launches "
+              f"{counts['int8_matmul_pallas']} "
+              f"({counts['int8_matmul_pallas'] / max(processed, 1):.2f} per "
+              f"processed frame), reproject_match_fused launches "
+              f"{counts['reproject_match_fused']}")
+    q.matmul_backend = "pallas"
+
+    comp, state, stats, counts = runs["int8, kernel"]
+    _, rstate, rstats, rcounts = runs["int8, plain int8_matmul"]
+    processed = int(stats.processed.sum())
+    _need(counts["int8_matmul_pallas"] == 8 * processed > 0,
+          f"int8: {counts['int8_matmul_pallas']} kernel launches for "
+          f"{processed} processed frames, not 8 each")
+    _need(rcounts["int8_matmul_pallas"] == 0,
+          "int8: the plain run launched the kernel")
+    _need(all(torch.equal(a, b) for a, b in zip(stats, rstats)),
+          "int8: counters differ between the kernel and the plain version")
+    _need(all(torch.equal(a, b) for a, b in
+              zip(state_leaves(state), state_leaves(rstate))),
+          "int8: state differs between the kernel and the plain version")
+    _need(all(t.device == device for t in state_leaves(state)),
+          "int8: state left the card")
+    _need(all(bool(torch.isfinite(t).all()) for t in state_leaves(state)
+              if t.dtype.is_floating_point), "int8: non-finite state")
+    fp32_stats = runs["fp32"][2]
+    print(f"[11] int8 kernel vs plain int8_matmul: counters and state "
+          f"bitwise equal; matched {int(stats.n_matched.sum())} (fp32 "
+          f"{int(fp32_stats.n_matched.sum())}), inserted "
+          f"{int(stats.n_inserted.sum())} (fp32 "
+          f"{int(fp32_stats.n_inserted.sum())}), occupancy "
+          f"{int(stats.buffer_valid[-1])}/{cfg.capacity}; depth weights "
+          f"{depth_mod.memory_bytes(models.depth_model, True)} bytes in "
+          f"int8, {depth_mod.memory_bytes(models.depth_model, False)} in "
+          f"fp32")
+    return counts["int8_matmul_pallas"], (comp, state, stats)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: baselines, tokens and the energy model.
+# ---------------------------------------------------------------------------
+
+
+def phase_baselines(torch, device, epic, n_frames=N_FRAMES):
+    """``epic`` is ``(compressor, state, stats)`` of phase 11's int8 run
+    on the same stream."""
+    from repro_torch.api import BaselineConfig, get_compressor
+    from repro_torch.core import energy
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.core import retained as ret
+
+    stream, _, _ = main_path_inputs(torch, device, n_frames)
+    h, w = stream[0].shape[1:3]
+    ecomp, estate, estats = epic
+    counters = {}
+    for name, budget in (("fv", -1), ("sd", BASELINE_BUDGET),
+                         ("td", BASELINE_BUDGET), ("gc", BASELINE_BUDGET)):
+        cfg = BaselineConfig(frame_hw=(h, w), patch=16, budget_patches=budget,
+                             n_frames=n_frames)
+        comp = get_compressor(name)(cfg, device=device)
+        state, stats, _, _, secs = run_session(torch, comp, stream, device)
+        tokens = comp.tokens(state, TOKENS)
+        rp = comp.export(state)
+        n_valid = int(rp.valid.sum())
+        _need(int(stats.buffer_valid[-1]) == n_valid == min(
+            cfg.capacity, int(state.cursor)) > 0,
+            f"{name}: occupancy {int(stats.buffer_valid[-1])}, {n_valid} "
+            f"valid, cursor {int(state.cursor)}")
+        _need(int(state.frame_idx) == n_frames, f"{name}: frame clock "
+              f"{int(state.frame_idx)}")
+        _need(tuple(tokens.tokens.shape) == (TOKENS, 198) and
+              int(tokens.mask.sum()) == min(TOKENS, n_valid)
+              and bool(torch.isfinite(tokens.tokens).all()),
+              f"{name}: tokens {tuple(tokens.tokens.shape)}")
+        _need(all(t.device == device for t in (*rp[:4], state.cursor)),
+              f"{name}: state left the card")
+        # What each system reads out per frame (its schedule): SD a
+        # downsampled frame, GC the crop, TD and FV whole frames.
+        side = (comp._gg * cfg.patch if name == "sd" else
+                comp._select_spec()[1]["crop"] if name == "gc" else h)
+        stored = int(rp.memory_bytes())
+        counters[name] = energy.StreamCounters(
+            n_frames=n_frames, frame_px=side * side,
+            n_processed=int(stats.processed.sum()), patch_px=256,
+            stored_bytes=stored, h264=True)
+        print(f"[12] {name}: {n_frames / secs:.1f} frames/s, retained "
+              f"{n_valid} patches, {stored} bytes (Table-1 record), tokens "
+              f"{tuple(tokens.tokens.shape)} with {int(tokens.mask.sum())} "
+              f"valid")
+    etokens = ecomp.tokens(estate, TOKENS)
+    _need(bool(torch.isfinite(etokens.tokens).all()), "epic: tokens")
+    epic_c = pipe.stream_counters(ecomp.cfg, estats)
+    _need(epic_c.n_processed == int(estats.processed.sum()) and
+          epic_c.depth_macs == pipe.depth_mod_macs() * epic_c.n_processed,
+          "epic: stream_counters disagree with the stats")
+    print(f"[12] epic (int8 depth): retained "
+          f"{int(ecomp.export(estate).valid.sum())} patches, "
+          f"{int(ecomp.export(estate).memory_bytes())} bytes (Table-1 "
+          f"record), {epic_c.stored_bytes} bytes as DC entries; tokens "
+          f"{tuple(etokens.tokens.shape)} with {int(etokens.mask.sum())} "
+          f"valid; counters {epic_c}")
+    fvs = energy.StreamCounters(
+        n_frames=n_frames, frame_px=h * w, n_processed=n_frames,
+        stored_bytes=n_frames * h * w * ret.RGB_BYTES_PER_PX, h264=True,
+        patch_px=256)
+    systems = {"FVS": fvs, "SDS": counters["sd"], "TDS": counters["td"],
+               "GCS": counters["gc"], "EPIC+GPU": epic_c, "EPIC+Acc": epic_c,
+               "EPIC+Acc+InSensor": epic_c}
+    e_fvs = energy.total_energy("FVS", fvs)
+    m_fvs = energy.memory_footprint_bytes(fvs)
+    for system, c in systems.items():
+        e = energy.total_energy(system, c)
+        m = energy.memory_footprint_bytes(c)
+        _need(e > 0 and m > 0, f"{system}: energy {e}, memory {m}")
+        print(f"[12] Figure 6 {system}: energy {e * 1e3:.4f} mJ, memory "
+              f"{m} bytes; FVS / {system}: energy {e_fvs / e:.2f}x, memory "
+              f"{m_fvs / m:.2f}x")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -917,10 +1250,15 @@ def main() -> int:
     launches["flash_attention_pallas"] = phase_efm(torch, device,
                                                    kernel_wrappers())
     phase_efm_profile(torch, device)
+    operands, errs["int8"] = phase_int8(torch, device)
+    times["int8_matmul_pallas"] = phase_int8_times(torch, device, operands)
+    launches["int8_matmul_pallas"], epic = phase_int8_main_path(torch, device)
+    phase_baselines(torch, device, epic)
 
     rows = []
     for name, (replaces, source) in KERNELS.items():
         err_key = ("flash" if name == "flash_attention_pallas" else
+                   "int8" if name == "int8_matmul_pallas" else
                    "sparse" if "tiled" in name else "main")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=launches[name], max_abs_err=errs[err_key],

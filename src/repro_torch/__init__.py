@@ -1,7 +1,7 @@
 """EPIC in PyTorch for NVIDIA Hopper: the port of the JAX package ``repro``.
 
 The package mirrors ``src/repro`` file for file and imports nothing from
-it, nor JAX.  The reproject-match and flash-attention kernels are
+it, nor JAX.  The reproject-match, flash-attention and int8 matmul kernels are
 hand-written CUDA (``kernels/*/csrc``, built by ``kernels/_build.py``);
 everything else is plain PyTorch.
 

@@ -2,7 +2,10 @@
 
   SensorChunk, iter_chunks, concat_stats      (types)
   FrameCtx, FrameStage, Gated, StageGraph     (stages)
-  Compressor, EPICCompressor, run_session     (compressor, loaded lazily)
+  Compressor, EPICCompressor, run_session,
+  BaselineConfig, BaselineState, BaselineFrameStats,
+  FullVideo, TemporalDown, SpatialDown, GazeCrop
+                                              (compressor, loaded lazily)
   the registries' get/register/available/validate functions.
 """
 
@@ -24,6 +27,7 @@ from repro_torch.api.registry import (  # noqa: F401
     register_compressor,
     register_stage,
     validate_backend,
+    validate_k_ladder,
     validate_patch_k,
     validate_prefilter_k,
 )
@@ -39,7 +43,11 @@ from repro_torch.api.types import (  # noqa: F401
     iter_chunks,
 )
 
-_LAZY = ("Compressor", "EPICCompressor", "run_session")
+_LAZY = (
+    "Compressor", "EPICCompressor", "run_session", "BaselineConfig",
+    "BaselineState", "BaselineFrameStats", "FullVideo", "TemporalDown",
+    "SpatialDown", "GazeCrop",
+)
 
 
 def __getattr__(name: str):

@@ -4,13 +4,16 @@ combinators (PyTorch port of ``repro.api.registry``).
 The keys are those of the JAX package, so a configuration written for it
 ports unchanged:
 
-* **Compressors** — ``"epic"`` (the baselines come with a later slice).
+* **Compressors** — ``"epic"`` and the four baselines ``"fv"``, ``"sd"``,
+  ``"td"``, ``"gc"``.
 * **Kernel backends** — the reproject-match implementations ``"ref"``
   (plain PyTorch), ``"pallas"``, ``"pallas_tiled"`` and ``"fused"`` (the
   hand-written CUDA kernel, launched three ways).  A backend callable may
   carry a ``fused_match`` attribute, which the TSRC step uses, when
   present, to run match + thresholds + patch-update mask as one kernel.
-* **Frame stages** — ``"bypass"``, ``"depth"``, ``"saliency"``, ``"tsrc"``.
+* **Frame stages** — ``"bypass"``, ``"depth"``, ``"saliency"``, ``"tsrc"``,
+  the baselines' ``"select.fv"``, ``"select.sd"``, ``"select.td"``,
+  ``"select.gc"`` and ``"retain"``.
 * **Combinators** — ``"gated"``.
 
 Lookups fail fast with a ``KeyError`` that lists the available names.
@@ -119,6 +122,30 @@ def validate_patch_k(k: int) -> int:
     return _validate_topk_knob(
         "patch_k", k, "0 = dense patch axis, P_k > 0 = salient compaction"
     )
+
+
+def validate_k_ladder(ladder) -> Tuple[int, ...]:
+    """Fail-fast check of an adaptive-K bucket ladder: a non-empty
+    sequence of strictly increasing positive ints, the ``prefilter_k``
+    rungs the host-side controller walks between chunks."""
+    try:
+        rungs = tuple(operator.index(k) for k in ladder)
+    except TypeError:
+        raise TypeError(
+            f"k_ladder must be a sequence of ints, got {ladder!r}"
+        ) from None
+    if not rungs:
+        raise ValueError("k_ladder must be non-empty")
+    if any(k <= 0 for k in rungs):
+        raise ValueError(
+            f"k_ladder buckets must be positive prefilter_k values, "
+            f"got {rungs}"
+        )
+    if any(b <= a for a, b in zip(rungs, rungs[1:])):
+        raise ValueError(
+            f"k_ladder must be strictly increasing, got {rungs}"
+        )
+    return rungs
 
 
 class BackendValidatedConfig:

@@ -1,10 +1,12 @@
 """Stage-graph pipeline: pluggable per-frame stages (port of
 ``repro.api.stages``).
 
-EPIC's per-frame work — bypass → depth → HIR saliency → TSRC (paper
-Figure 3c) — is an ordered composition of :class:`FrameStage` objects
-threaded over a shared :class:`FrameCtx`.  Stages are built by registry
-name, so new stages plug in without editing the loop.
+The per-frame work of every compression method — EPIC's bypass → depth →
+HIR saliency → TSRC chain (paper Figure 3c) and the four baselines'
+select → retain bodies — is an ordered composition of
+:class:`FrameStage` objects threaded over a shared :class:`FrameCtx`.
+Stages are built by registry name, so new stages plug in without
+editing the loop.
 
 Two framework differences: the ``lax.cond`` of :class:`Gated` is a host
 ``if`` on the gate (one device-to-host sync per frame), and the
@@ -50,6 +52,9 @@ class FrameCtx(NamedTuple):
     dmap: Optional[Tensor] = None  # (H, W) predicted/oracle depth
     sal_mask: Optional[Tensor] = None  # (G*G,) bool SRD saliency
     sal_score: Optional[Tensor] = None  # (G*G,) float saliency strength
+    patches: Optional[Tensor] = None  # (K, P, P, 3) candidate patches
+    origins: Optional[Tensor] = None  # (K, 2) candidate origins
+    keep: Optional[Tensor] = None  # () bool — retain this frame
     stats: Dict[str, Any] = {}
 
     def with_stat(self, name: str, value: Any) -> "FrameCtx":
@@ -121,7 +126,9 @@ class StageGraph:
     """An ordered FrameStage composition + frame clock + stats finalizer.
 
     The graph state is ``(per_stage_states, clock)``; the clock is a
-    float32 0-dim tensor on ``device`` that ticks by one per frame.
+    0-dim tensor on ``device`` made by ``clock_init`` (default float32
+    zero) and advanced by ``clock_next`` after every frame (default
+    ``t + 1.0``; the baselines count frames in int32).
     ``finalize(ctx) -> stats`` shapes the per-stage counters into the
     method's public per-frame stats.
     """
@@ -132,16 +139,21 @@ class StageGraph:
         *,
         device,
         finalize: Optional[Callable[[FrameCtx], Any]] = None,
+        clock_init: Optional[Callable[[], Tensor]] = None,
+        clock_next: Callable[[Tensor], Tensor] = lambda t: t + 1.0,
     ):
         self.stages = tuple(stages)
         self.device = torch.device(device)
         self.finalize = finalize
+        self.clock_init = clock_init or (
+            lambda: torch.zeros((), dtype=torch.float32, device=self.device)
+        )
+        self.clock_next = clock_next
 
     # -- state management ----------------------------------------------------
 
     def init_state(self) -> Tuple[Tuple[Any, ...], Tensor]:
-        clock = torch.zeros((), dtype=torch.float32, device=self.device)
-        return tuple(s.init() for s in self.stages), clock
+        return tuple(s.init() for s in self.stages), self.clock_init()
 
     def pack_state(
         self, values: Dict[str, Any], clock: Tensor
@@ -228,7 +240,7 @@ class StageGraph:
             st, ctx = stage.apply(st, ctx)
             out.append(st)
         stats = self.finalize(ctx) if self.finalize is not None else ctx.stats
-        return (tuple(out), t + 1.0), stats
+        return (tuple(out), self.clock_next(t)), stats
 
     def scan(
         self,

@@ -10,6 +10,13 @@ with the same weights:
 * a depthwise kernel ``(3, 3, 1, cin)`` -> ``(cin, 1, 3, 3)``, run with
   ``groups=cin`` — the same transpose.
 
+The int8 depth network (``depth.quantize_params``'s ``QuantizedParams``)
+keeps its int8 kernels in the layout its int8 path multiplies
+(``depth.qlayer_shapes``): a 3x3 kernel ``(3, 3, cin, cout)`` reshaped to
+the im2col matrix ``(9 cin, cout)``, a depthwise one to ``(3, 3, cin)``, a
+pointwise one to ``(cin, cout)``; the per-channel scales ``(1, 1, 1, c)``
+become ``(c,)``.
+
 The EFM models keep the reference's pytree layout (linear weights
 ``(d_in, d_out)``, layer stacks with a leading ``L`` axis), so
 :func:`dense_from_jax` only checks the tree and moves its leaves.
@@ -17,6 +24,7 @@ The EFM models keep the reference's pytree layout (linear weights
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import numpy as np
@@ -25,6 +33,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import depth as depth_mod
 from repro_torch.core.depth import DepthNet
 from repro_torch.core.hir import HIRNet
 from repro_torch.models import transformer
@@ -62,6 +71,40 @@ def depth_from_jax(params: Mapping[str, Mapping[str, np.ndarray]],
         for key, value in layer.items():
             _load(model.layers[name], key, value)
     return model
+
+
+def quantized_depth_from_jax(q, device=None,
+                             matmul_backend: str = "pallas"
+                             ) -> depth_mod.QuantizedParams:
+    """A :class:`~repro_torch.core.depth.QuantizedParams` holding the JAX
+    package's ``QuantizedParams`` ``(qweights, scales, act_scale)`` as
+    numpy arrays (``jax.tree.map(np.asarray, q)``)."""
+    device = resolve_device(device)
+    qweights, scales, act_scale = q
+    layers = {}
+    for name, kind, cin, cout, _ in (depth_mod._ENCODER + depth_mod._DECODER
+                                     + (depth_mod._HEAD,)):
+        for part, tree in (("qweights", qweights), ("scales", scales),
+                           ("act_scale", act_scale)):
+            if name not in tree:
+                raise ValueError(f"layer {name!r} missing from {part} "
+                                 f"{sorted(tree)}")
+        layers[name] = {}
+        for key, shape in depth_mod.qlayer_shapes(kind, cin, cout).items():
+            if key == "act_scale":
+                value = act_scale[name]
+            elif key.endswith("_scale"):
+                value = scales[name][key[:-len("_scale")]]
+            else:
+                value = qweights[name][key]
+            a = np.asarray(value)
+            if a.size != math.prod(shape):
+                raise ValueError(f"{name}/{key}: shape {a.shape} does not "
+                                 f"fit {shape}")
+            layers[name][key] = torch.from_numpy(
+                np.ascontiguousarray(a).reshape(shape).copy()
+            ).to(device)
+    return depth_mod.QuantizedParams(layers, matmul_backend)
 
 
 def hir_from_jax(params: Mapping[str, np.ndarray], device=None) -> HIRNet:

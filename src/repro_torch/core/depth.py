@@ -1,10 +1,14 @@
-"""Depth Estimation Module (EPIC paper, Section 3.2), fp32.
+"""Depth Estimation Module (EPIC paper, Section 3.2), fp32 and int8.
 
 Port of ``repro.core.depth``: a FastDepth-style monocular depth CNN on a
 64x64 input (the paper resizes the frame to 64x64 and interpolates the
 prediction back), with a depthwise-separable encoder and a
-nearest-upsample decoder with additive skips.  The int8 path
-(``QuantizedParams`` / ``forward_int8``) comes with the int8 kernel.
+nearest-upsample decoder with additive skips, and its int8 post-training
+quantisation (:class:`QuantizedParams`, :func:`forward_int8`; the paper
+deploys the network in 8-bit integers).  The int8 path runs its dense and
+pointwise convolutions as :func:`im2col` + the ``int8_matmul`` op (the
+CUDA kernel on the card) and its depthwise convolutions as nine shifted
+int32 products; every int32 sum is exact.
 
 The public functions keep the JAX package's NHWC layout; the network
 runs NCHW inside.  Two framework differences are handled here:
@@ -18,9 +22,14 @@ runs NCHW inside.  Two framework differences are handled here:
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+from repro_torch.kernels.int8_matmul import ops as int8_ops
 
 DEPTH_INPUT = 64  # paper: inputs resized to 64x64
 
@@ -147,10 +156,283 @@ def resize_image(img: Tensor, size: int) -> Tensor:
     return x if batched else x[0]
 
 
-def predict_fullres(model: DepthNet, frame: Tensor) -> Tensor:
-    """Paper inference path: frame -> 64x64 -> CNN -> back to ``(H, W)``."""
+def predict_fullres(model, frame: Tensor) -> Tensor:
+    """Paper inference path: frame -> 64x64 -> CNN -> back to ``(H, W)``.
+
+    ``model`` is a :class:`DepthNet`, or a :class:`QuantizedParams` for
+    the int8 deployment path (Section 3.2).
+    """
     h, w = frame.shape[0], frame.shape[1]
     small = resize_image(frame, DEPTH_INPUT)[None]
-    d = model(small)  # (1, 64, 64)
+    if isinstance(model, QuantizedParams):
+        d = forward_int8(model, small)
+    else:
+        d = model(small)  # (1, 64, 64)
     return F.interpolate(d[None], size=(h, w), mode="bilinear",
                          align_corners=False, antialias=True)[0, 0]
+
+
+def memory_bytes(model: nn.Module, int8: bool) -> int:
+    """Model weight footprint (paper: int8 cuts depth-module memory 4x)."""
+    return sum(p.numel() for p in model.parameters()) * (1 if int8 else 4)
+
+
+# ---------------------------------------------------------------------------
+# Int8 post-training quantization (paper Section 3.2).
+# ---------------------------------------------------------------------------
+
+
+def qlayer_shapes(kind: str, cin: int,
+                  cout: int) -> Dict[str, Tuple[int, ...]]:
+    """The buffers of one quantised layer and their shapes.
+
+    A 3x3 conv keeps its int8 kernel in the im2col layout ``w (9 cin,
+    cout)`` (the HWIO kernel reshaped: rows ordered ``(dy, dx, c)``); a
+    depthwise-separable layer keeps ``dw (3, 3, cin)`` and ``pw (cin,
+    cout)``.  Each int8 kernel has its per-output-channel float scale
+    (``*_scale``), and every layer its float bias ``b`` and the
+    calibrated max-abs of its input, ``act_scale`` (0-dim).
+    """
+    if kind == "conv":
+        shapes = {"w": (9 * cin, cout), "w_scale": (cout,)}
+    else:
+        shapes = {"dw": (3, 3, cin), "dw_scale": (cin,),
+                  "pw": (cin, cout), "pw_scale": (cout,)}
+    return {**shapes, "b": (cout,), "act_scale": ()}
+
+
+class _QLayer(nn.Module):
+    """One quantised layer: :func:`qlayer_shapes`'s tensors as buffers."""
+
+    def __init__(self, kind: str, stride: int, tensors: Dict[str, Tensor]):
+        super().__init__()
+        self.kind, self.stride = kind, stride
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
+
+
+class QuantizedParams(nn.Module):
+    """Symmetric per-output-channel int8 weights + float biases/scales.
+
+    The JAX package's ``QuantizedParams`` (qweights, scales, act_scale) as
+    one module of buffers per layer (:func:`qlayer_shapes`).
+    ``matmul_backend`` is the ``int8_matmul`` backend of the dense and
+    pointwise convolutions: ``"pallas"`` (the CUDA kernel; its plain
+    version for CPU tensors) or ``"ref"`` (the plain version).
+    """
+
+    def __init__(self, layers: Dict[str, Dict[str, Tensor]],
+                 matmul_backend: str = "pallas"):
+        super().__init__()
+        specs = {name: (kind, cin, cout, stride) for name, kind, cin, cout,
+                 stride in _ENCODER + _DECODER + (_HEAD,)}
+        if set(layers) != set(specs):
+            raise ValueError(
+                f"layers {sorted(layers)} do not match {sorted(specs)}"
+            )
+        modules = {}
+        for name, tensors in layers.items():
+            kind, cin, cout, stride = specs[name]
+            want = qlayer_shapes(kind, cin, cout)
+            got = {k: tuple(t.shape) for k, t in tensors.items()}
+            if got != want:
+                raise ValueError(f"{name}: buffers {got} do not match {want}")
+            modules[name] = _QLayer(kind, stride, tensors)
+        self.layers = nn.ModuleDict(modules)
+        self.matmul_backend = matmul_backend
+
+    @property
+    def matmul_backend(self) -> str:
+        return self._matmul_backend
+
+    @matmul_backend.setter
+    def matmul_backend(self, backend: str) -> None:
+        if backend not in int8_ops.BACKENDS:
+            raise ValueError(f"unknown int8_matmul backend {backend!r}; "
+                             f"known: {int8_ops.BACKENDS}")
+        self._matmul_backend = backend
+
+
+def quantize_weight(w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-output-channel symmetric int8 quantization (last axis = out ch)."""
+    amax = w.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _hwio(w: Tensor) -> Tensor:
+    """The port's ``(cout, cin, kh, kw)`` kernel in JAX's HWIO layout."""
+    return w.detach().permute(2, 3, 1, 0)
+
+
+@torch.no_grad()
+def quantize_params(model: DepthNet, calib_rgb64: Tensor,
+                    matmul_backend: str = "pallas") -> QuantizedParams:
+    """Post-training quantization with activation calibration.
+
+    Weights are quantised per output channel; activation scales are the
+    max-abs of each layer's input over the calibration batch
+    (``(B, 64, 64, 3)``).
+    """
+    act_scale = _calibrate(model, calib_rgb64)
+    layers = {}
+    for name, kind, cin, cout, _ in _ENCODER + _DECODER + (_HEAD,):
+        layer = model.layers[name]
+        t = {"b": layer.b.detach().clone(), "act_scale": act_scale[name]}
+        if kind == "conv":
+            q, s = quantize_weight(_hwio(layer.w))
+            t["w"], t["w_scale"] = q.reshape(9 * cin, cout), s.reshape(cout)
+        else:
+            q, s = quantize_weight(_hwio(layer.dw))
+            t["dw"], t["dw_scale"] = q.reshape(3, 3, cin), s.reshape(cin)
+            q, s = quantize_weight(_hwio(layer.pw))
+            t["pw"], t["pw_scale"] = q.reshape(cin, cout), s.reshape(cout)
+        layers[name] = {k: v.contiguous() for k, v in t.items()}
+    return QuantizedParams(layers, matmul_backend)
+
+
+@torch.no_grad()
+def _calibrate(model: DepthNet, rgb64: Tensor) -> Dict[str, Tensor]:
+    """Record per-layer input max-abs on a calibration batch."""
+    record: Dict[str, Tensor] = {}
+    x = rgb64.permute(0, 3, 1, 2)
+    skips = {}
+    for name, *_ in _ENCODER:
+        record[name] = x.abs().amax()
+        x = model.layers[name](x)
+        skips[name] = x
+    for (name, *_), skip in zip(_DECODER, _SKIPS):
+        x = upsample2(x)
+        record[name] = x.abs().amax()
+        x = model.layers[name](x)
+        if skip is not None:
+            x = x + skips[skip]
+    record[_HEAD[0]] = x.abs().amax()
+    return record
+
+
+def im2col(x: Tensor, k: int,
+           stride: int = 1) -> Tuple[Tensor, Tuple[int, int, int]]:
+    """``(N, H, W, C)`` -> ``(N Ho Wo, k k C)``: one row per output pixel,
+    its ``k x k`` window with columns ordered ``(dy, dx, c)``, so the HWIO
+    kernel reshaped to ``(k k C, cout)`` multiplies it.  Returns the
+    matrix and ``(N, Ho, Wo)``.
+
+    Padding is JAX's ``SAME`` (:func:`conv2d_same`: at stride 2 an even
+    input pads (0, 1)); the windows are strided slices of the padded
+    input, so any dtype works (``F.unfold`` takes no int8).
+    """
+    n, c = x.shape[0], x.shape[3]
+    windows = _same_windows(x, k, stride)
+    ho, wo = windows[0].shape[1:3]
+    return (torch.stack(windows, dim=3).reshape(n * ho * wo, k * k * c),
+            (n, ho, wo))
+
+
+def _same_windows(x: Tensor, k: int, stride: int) -> list:
+    """The ``k k`` shifted, strided views of NHWC ``x`` padded as JAX's
+    ``SAME``, in ``(dy, dx)`` order: view ``(dy, dx)`` holds, for every
+    output pixel, the input under that tap of the window."""
+    h, w = x.shape[1], x.shape[2]
+    ho, wo = -(-h // stride), -(-w // stride)
+    ph = max((ho - 1) * stride + k - h, 0)
+    pw = max((wo - 1) * stride + k - w, 0)
+    xp = F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    return [
+        xp[:, dy:dy + (ho - 1) * stride + 1:stride,
+           dx:dx + (wo - 1) * stride + 1:stride]
+        for dy in range(k) for dx in range(k)
+    ]
+
+
+# float32(1 / 127): XLA turns the reference's ``max(xscale, 1e-8) / 127.0``
+# into a product with this constant when it compiles ``forward_int8``.
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_activation(x: Tensor, xscale: Tensor) -> Tuple[Tensor, Tensor]:
+    """Symmetric per-tensor int8 of ``x``: ``(qx, sx)`` with ``x ~ qx sx``.
+
+    As the JAX package's pipeline computes it under ``jax.jit``: the scale
+    is ``max(xscale, 1e-8)`` times float32(1/127) (eager JAX divides by
+    127, which can differ by an ulp and flip a rounded activation); the
+    input is divided by the scale, not multiplied by its reciprocal, and
+    rounded half to even.
+    """
+    sx = xscale.clamp_min(1e-8) * _INV_127
+    return torch.round(x / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def conv_int32(qx: Tensor, qw: Tensor, stride: int = 1,
+               backend: str = "ref") -> Tensor:
+    """Exact int32 SAME convolution of int8 ``qx (N, H, W, cin)`` with an
+    int8 kernel in the im2col layout ``(k k cin, cout)``, as
+    :func:`im2col` + the ``int8_matmul`` op on ``backend``."""
+    k = math.isqrt(qw.shape[0] // qx.shape[-1])
+    cols, (n, ho, wo) = im2col(qx, k, stride)
+    return int8_ops.int8_matmul(cols, qw, backend=backend).reshape(
+        n, ho, wo, qw.shape[1]
+    )
+
+
+def depthwise_int32(qx: Tensor, qw: Tensor, stride: int = 1) -> Tensor:
+    """Exact int32 SAME depthwise 3x3 convolution of int8 ``qx (N, H, W,
+    C)`` with ``qw (3, 3, C)``: nine shifted products summed in int32."""
+    windows = _same_windows(qx.to(torch.int32), 3, stride)
+    taps = qw.to(torch.int32).reshape(9, -1)
+    out = windows[0] * taps[0]
+    for window, tap in zip(windows[1:], taps[1:]):
+        out += window * tap
+    return out
+
+
+def _qconv(x: Tensor, qw: Tensor, wscale: Tensor, xscale: Tensor,
+           stride: int = 1, depthwise: bool = False,
+           backend: str = "ref") -> Tensor:
+    """Int8 conv: quantize the input, integer conv, dequantize as
+    ``(out sx) wscale`` (the JAX package's order)."""
+    qx, sx = quantize_activation(x, xscale)
+    if depthwise:
+        out = depthwise_int32(qx, qw, stride)
+    else:
+        out = conv_int32(qx, qw, stride, backend)
+    return out.to(torch.float32) * sx * wscale
+
+
+def _qblock(x: Tensor, layer: _QLayer, backend: str) -> Tensor:
+    if layer.kind == "conv":
+        x = _qconv(x, layer.w, layer.w_scale, layer.act_scale, layer.stride,
+                   backend=backend) + layer.b
+    else:
+        x = _qconv(x, layer.dw, layer.dw_scale, layer.act_scale,
+                   layer.stride, depthwise=True)
+        # The pointwise input's scale is taken on the device: no host sync.
+        x = _qconv(x, layer.pw, layer.pw_scale, x.abs().amax(), 1,
+                   backend=backend) + layer.b
+    return F.relu(x)
+
+
+def _upsample2_nhwc(x: Tensor) -> Tensor:
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+@torch.no_grad()
+def forward_int8(q: QuantizedParams, rgb64: Tensor) -> Tensor:
+    """Int8 inference path mirroring :func:`forward`: ``(B, 64, 64, 3)``
+    -> ``(B, 64, 64)``, NHWC throughout."""
+    backend = q.matmul_backend
+    x = rgb64
+    skips = {}
+    for name, *_ in _ENCODER:
+        x = _qblock(x, q.layers[name], backend)
+        skips[name] = x
+    for (name, *_), skip in zip(_DECODER, _SKIPS):
+        x = _qblock(_upsample2_nhwc(x), q.layers[name], backend)
+        if skip is not None:
+            x = x + skips[skip]
+    head = q.layers[_HEAD[0]]
+    x = _qconv(x, head.w, head.w_scale, head.act_scale, 1,
+               backend=backend) + head.b
+    x = x[..., 0]
+    return torch.logaddexp(x, torch.zeros_like(x)) + 0.05

@@ -24,8 +24,11 @@ from repro_torch import resolve_device
 from repro_torch.api import registry as _registry
 from repro_torch.api.stages import Gated, StageGraph
 from repro_torch.core import dc_buffer as dcb
+from repro_torch.core import depth as depth_mod
+from repro_torch.core import energy
 from repro_torch.core import frame_bypass
 from repro_torch.core import geometry as geo
+from repro_torch.core import retained as ret
 from repro_torch.core import tsrc as tsrc_mod
 
 
@@ -101,7 +104,7 @@ class EPICConfig(_registry.BackendValidatedConfig, _EPICConfig):
 
 
 class EPICModels(NamedTuple):
-    depth_model: Any = None  # DepthNet; None -> ground-truth depth oracle
+    depth_model: Any = None  # DepthNet or QuantizedParams; None -> oracle
     hir_model: Any = None  # HIRNet; None -> all-salient (temporal only)
 
 
@@ -260,3 +263,95 @@ def compress_stream(
     return scan_frames(
         init_state(cfg, device), *chunk, models, cfg
     )
+
+
+# ---------------------------------------------------------------------------
+# Energy-model bridge.
+# ---------------------------------------------------------------------------
+
+
+def stream_counters(cfg: EPICConfig, stats: FrameStats, *, int8_depth=True):
+    """Convert scan stats into ``energy.StreamCounters`` for the cost model.
+
+    With ``cfg.prefilter_k > 0`` the ``n_full_checks`` feeding the energy
+    model is the real per-frame candidate count of the sparse TRD path.
+    ``int8_depth`` is accepted and ignored, as in the JAX package (the
+    energy model charges depth MACs at the int8 rate on the accelerator
+    either way).  One-stream adapter over :func:`pool_stream_counters`.
+    """
+    return pool_stream_counters(
+        cfg, FrameStats(*(x[None] for x in stats))
+    )[0]
+
+
+def pool_stream_counters(cfg: EPICConfig, stats: FrameStats, *,
+                         streams=None):
+    """Per-stream ``energy.StreamCounters`` over pooled stats whose
+    tensors carry leading ``(n_streams, T)`` axes.
+
+    All reductions are taken on the device and cross to the host in one
+    transfer (one sync for the whole pool).  ``streams`` optionally
+    selects a subset of stream indices.
+    """
+    h, w = cfg.frame_hw
+    t = int(stats.processed.shape[1])
+    rows = torch.stack([
+        stats.processed.sum(dim=1, dtype=torch.int64),
+        stats.n_full_checks.sum(dim=1, dtype=torch.int64),
+        stats.n_bbox_checks.sum(dim=1, dtype=torch.int64),
+        stats.n_inserted.sum(dim=1, dtype=torch.int64),
+        stats.buffer_valid[:, -1].to(torch.int64),
+        # Patch-compacted association gathers: per frame, each of the
+        # n_full_checks candidates' bbox rows is read against each
+        # compacted patch slot (0 when no compaction ran).
+        (stats.n_full_checks * stats.n_patch_checked).sum(
+            dim=1, dtype=torch.int64),
+    ])
+    n_proc, full_checks, bbox_checks, inserted, final_valid, pair_reads = (
+        rows.cpu().tolist()
+    )
+    patch_bytes = ret.patch_rgb_bytes(cfg.patch)
+    entry_bytes = ret.dc_entry_bytes(cfg.patch)
+    if streams is None:
+        streams = range(stats.processed.shape[0])
+    return [
+        energy.StreamCounters(
+            n_frames=t,
+            frame_px=h * w,
+            n_processed=n_proc[i],
+            depth_macs=depth_mod_macs() * n_proc[i],
+            hir_macs=hir_macs() * n_proc[i],
+            n_bbox_checks=bbox_checks[i],
+            n_full_checks=full_checks[i],
+            patch_px=cfg.patch * cfg.patch,
+            stored_bytes=final_valid[i] * entry_bytes,
+            dc_traffic_bytes=(
+                full_checks[i] * patch_bytes
+                + inserted[i] * entry_bytes
+                + pair_reads[i] * ret.bbox_row_bytes()
+            ),
+        )
+        for i in streams
+    ]
+
+
+def depth_mod_macs() -> int:
+    """Analytic MAC count of FastDepth-lite on a 64x64 input."""
+    macs = 0
+    res = 64
+    for _, kind, cin, cout, stride in depth_mod._ENCODER:
+        res //= stride
+        if kind == "conv":
+            macs += res * res * 9 * cin * cout
+        else:
+            macs += res * res * (9 * cin + cin * cout)
+    for _, kind, cin, cout, _ in depth_mod._DECODER:
+        res *= 2
+        macs += res * res * (9 * cin + cin * cout)
+    macs += res * res * 9 * 16 * 1  # head
+    return macs
+
+
+def hir_macs() -> int:
+    """Analytic MAC count of the 3-layer HIR CNN on a 64x64 input."""
+    return 32 * 32 * 9 * 4 * 16 + 16 * 16 * 9 * 16 * 32 + 16 * 16 * 9 * 32 * 1

@@ -248,3 +248,17 @@ def generate_stream(
         poses, torch.stack(gazes), gaze_target, seg_of_frame,
     )
     return stream, scene
+
+
+def depth_training_batch(
+    rng: np.random.Generator, cfg: StreamConfig, batch: int, device=None
+) -> Tuple[Tensor, Tensor]:
+    """Random rendered views resized to 64x64: ``(rgb64 (B, 64, 64, 3),
+    depth64 (B, 64, 64))``, for depth-model training and int8 calibration
+    (``device=None``: the card)."""
+    from repro_torch.core import depth as depth_mod
+
+    stream, _ = generate_stream(rng, cfg._replace(n_frames=batch), device)
+    rgb64 = depth_mod.resize_image(stream.frames, 64)
+    d64 = depth_mod.resize_image(stream.depth[..., None], 64)[..., 0]
+    return rgb64, d64

@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card, reproject-match and flash attention
-(marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
+"""The CUDA kernels on the card, reproject-match, flash attention and int8
+matmul (marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -137,3 +137,73 @@ def test_flash_wrapper_rejects_a_non_contiguous_tensor(device):
     q = torch.zeros(1, 64, 4, 64, device=device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_pallas(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul: the kernel against its plain version, exactly (the
+# reference's gate, tests/test_kernels.py:147), at the reference test's
+# shapes, the int8 depth network's eight shapes and ragged edges.
+# ---------------------------------------------------------------------------
+
+INT8_SHAPES = [
+    (128, 128, 128), (256, 384, 128), (130, 200, 70), (1, 9, 1), (64, 1, 64),
+    (1024, 27, 16), (256, 16, 32), (64, 32, 64), (64, 64, 64), (256, 64, 32),
+    (1024, 32, 16), (4096, 16, 16), (4096, 144, 1), (65, 33, 129),
+    (3000, 1000, 300),
+]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_kernel_equals_its_plain_version(device, m, k, n):
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+
+    g = torch.Generator(device=device).manual_seed(m + k + n)
+    a = torch.randint(-128, 128, (m, k), generator=g, device=device,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    before = int8_matmul_pallas.launches
+    out = int8_matmul_pallas(a, b)
+    torch.cuda.synchronize()
+    assert int8_matmul_pallas.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    assert torch.equal(out, int8_matmul_ref(a, b))
+
+
+def test_int8_kernel_extremes(device):
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+
+    a = torch.full((64, 512), -128, dtype=torch.int8, device=device)
+    b = torch.full((512, 64), -128, dtype=torch.int8, device=device)
+    out = int8_matmul_pallas(a, b)
+    assert bool((out == 512 * 128 * 128).all())
+
+
+def test_int8_wrapper_rejects_a_non_contiguous_tensor(device):
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+
+    a = torch.zeros(16, 16, dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul_pallas(a.t(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul_pallas(a, a[:, :8])
+
+
+def test_int8_depth_network_launches_eight_kernels(device):
+    """One ``forward_int8`` on the card: 8 launches (2 dense 3x3 and 6
+    pointwise convolutions), the same output as on the plain version."""
+    from repro_torch.core import depth
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+
+    g = torch.Generator(device=device).manual_seed(0)
+    net = depth.init_params(g)
+    calib = torch.rand(4, 64, 64, 3, generator=g, device=device)
+    q = depth.quantize_params(net, calib)
+    x = torch.rand(1, 64, 64, 3, generator=g, device=device)
+    before = int8_matmul_pallas.launches
+    out = depth.forward_int8(q, x)
+    assert int8_matmul_pallas.launches == before + 8
+    q.matmul_backend = "ref"
+    assert torch.equal(out, depth.forward_int8(q, x))
+    assert int8_matmul_pallas.launches == before + 8

@@ -70,6 +70,7 @@ def test_no_jax_or_reference_import(path):
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch import api
     from repro_torch.api import EPICCompressor
     from repro_torch.data import synthetic
 
@@ -79,6 +80,10 @@ def test_default_device_raises_without_cuda():
         synthetic.generate_stream(None, synthetic.StreamConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.compress_stream(None, None, None, tpipe.EPICConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.get_compressor("fv")(api.BaselineConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.depth_training_batch(None, synthetic.StreamConfig(), 4)
 
 
 def test_default_backend_is_the_kernel():
@@ -102,8 +107,9 @@ def test_unknown_keys_list_the_available_names(lookup, what):
     assert f"unknown {what} 'bogus'" in msg
     for name in {
         "kernel backend": ("fused", "pallas", "pallas_tiled", "ref"),
-        "frame stage": ("bypass", "depth", "saliency", "tsrc"),
-        "compressor": ("epic",),
+        "frame stage": ("bypass", "depth", "saliency", "tsrc", "retain",
+                        "select.fv", "select.sd", "select.td", "select.gc"),
+        "compressor": ("epic", "fv", "sd", "td", "gc"),
         "combinator": ("gated",),
     }[what]:
         assert repr(name) in msg
@@ -120,8 +126,11 @@ def test_config_validation_fails_fast():
         tpipe.EPICConfig(patch_k=1.5)
     from repro_torch.api import EPICCompressor
 
-    with pytest.raises(NotImplementedError):
-        EPICCompressor(tpipe.EPICConfig(), device="cpu", k_ladder=(8, 16))
+    with pytest.raises(ValueError, match="strictly increasing"):
+        EPICCompressor(tpipe.EPICConfig(), device="cpu", k_ladder=(16, 8))
+    with pytest.raises(ValueError, match="not a rung"):
+        EPICCompressor(tpipe.EPICConfig(prefilter_k=4), device="cpu",
+                       k_ladder=(8, 16))
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
