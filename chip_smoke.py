@@ -63,6 +63,26 @@ and prints no result line):
    11's int8 run) on the same stream on the card: retained bytes, token
    stream shape, and the energy model's Figure 6 energy and memory ratios
    to FVS (``stream_counters``, ``core/energy.py``).
+13. The RWKV6 and Mamba-2 SSD scan kernels against their plain version
+   (the chunked form) on the card: at the reference test's shapes (and
+   against the sequential oracle there), at the full-width shapes of
+   RWKV6-3B (r (4, 40, 1024, 64), chunk 32) and Zamba2-2.7B (x (4, 80,
+   1024, 64), N 64, chunk 64) in float32 and bf16, contiguous and in the
+   layout the models hand over ((B, T, H, .) seen as (B, H, T, .), read
+   through its strides), and on a strong-decay draw (w_log = -exp(2 z)):
+   within 2e-4, the reference's gate.
+14. Their times at the full-width shapes in the models' layout (CUDA graph
+   replay between CUDA events) beside the plain version's and the bound
+   (the products the chunked form needs, over the lower triangle).
+15. The RWKV6 and hybrid answer paths at full width: RWKV6-3B (32 layers,
+   d_model 2560) and Zamba2-2.7B (54 Mamba-2 layers, d_model 2560, 9
+   shared-attention invocations), seeded random bf16 weights, prefill 4
+   prompts of 1024 seeded token ids (``jit_prefill``) on
+   ``scan_backend="pallas"`` (one kernel launch per layer: 32 and 54) and
+   on ``"chunked"``, then 8 greedy tokens (``greedy_decode_loop``); the
+   same in float32 at a cut depth (8 and 12 layers), where logits, greedy
+   tokens and the serve state of the two backends agree within 1e-3.  The
+   bf16 ``"pallas"`` prefill and decode are profiled as in phase 8.
 
 It then prints one JSON line ``{"kernels": [...]}``, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -97,6 +117,8 @@ FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
 RM_SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
+SSD_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
+RWKV_SOURCE = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
 KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
     "reproject_match_pallas":
         ("src/repro/kernels/reproject_match/kernel.py:204", RM_SOURCE),
@@ -108,6 +130,10 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/flash_attention/kernel.py:99", FA_SOURCE),
     "int8_matmul_pallas":
         ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
+    "mamba2_ssd_pallas":
+        ("src/repro/kernels/mamba2_ssd/kernel.py:79", SSD_SOURCE),
+    "rwkv6_scan_pallas":
+        ("src/repro/kernels/rwkv6_scan/kernel.py:94", RWKV_SOURCE),
 }
 
 # Flash attention: the reference's gates (tests/test_kernels.py:182,196).
@@ -138,6 +164,20 @@ DEPTH_GEMMS = (
 # Baselines at EPIC's budget (EPICConfig().capacity patches; FV unbounded).
 BASELINE_BUDGET = 192
 TOKENS = 256
+# The scans: the reference's gate (tests/test_kernels.py:231-232, 263-264),
+# its test shapes (:218-223, :250-255) and the full-width shapes of the
+# two models' prefills (4 prompts of 1024 tokens).
+SCAN_TOL = 2e-4
+RWKV_TEST_SHAPES = ((1, 2, 128, 32, 32, 32), (2, 4, 256, 64, 64, 64),
+                    (1, 1, 64, 16, 48, 16), (1, 2, 192, 64, 64, 64))
+SSD_TEST_SHAPES = ((1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
+                   (1, 1, 64, 64, 64, 64), (1, 3, 192, 32, 64, 32))
+RWKV_FULL = (4, 40, 1024, 64, 64, 32)  # b, h, t, k, v, chunk
+SSD_FULL = (4, 80, 1024, 64, 64, 64)  # b, h, t, p, n, chunk
+# Phase 15: the recurrent answer paths, their float32 check's cut depth.
+SSM_ARCHS = {"rwkv6-3b": ("rwkv6_scan_pallas", 8),
+             "zamba2-2.7b": ("mamba2_ssd_pallas", 12)}
+SSM_NEW = 8
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -164,14 +204,16 @@ def phase_build(torch) -> None:
 
     from repro_torch.kernels.flash_attention.kernel import LIBRARY as fa_lib
     from repro_torch.kernels.int8_matmul.kernel import LIBRARY as i8_lib
+    from repro_torch.kernels.mamba2_ssd.kernel import LIBRARY as ssd_lib
     from repro_torch.kernels.reproject_match.kernel import LIBRARY as rm_lib
+    from repro_torch.kernels.rwkv6_scan.kernel import LIBRARY as rwkv_lib
 
     torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # same convolutions each run
     torch.backends.cudnn.benchmark = False
     t0 = time.perf_counter()
-    libs = (rm_lib, fa_lib, i8_lib)
+    libs = (rm_lib, fa_lib, i8_lib, ssd_lib, rwkv_lib)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
@@ -309,11 +351,14 @@ def check_kernels(torch, args, intr, window, label):
 
 
 def phase_kernels(torch, device):
-    errs = {}
+    """Returns each wrapper's largest |kernel - plain| at its main-path
+    shape: N = 192 for the dense launches, K = 24 for the tiled one."""
     args, intr = make_inputs(torch, device, 192, 16, 128, SEED)
-    errs["main"] = check_kernels(torch, args, intr, 32, "main N=192")
+    dense = check_kernels(torch, args, intr, 32, "main N=192")
     args, intr = make_inputs(torch, device, 24, 16, 128, SEED + 1)
-    errs["sparse"] = check_kernels(torch, args, intr, 32, "sparse K=24")
+    errs = {"reproject_match_pallas": dense, "reproject_match_fused": dense,
+            "reproject_match_pallas_tiled": check_kernels(
+                torch, args, intr, 32, "sparse K=24")}
     for n in (1, 7, 13):
         args, intr = make_inputs(torch, device, n, 16, 128, n)
         check_kernels(torch, args, intr, 32, f"N={n}")
@@ -515,7 +560,9 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas)
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
     from repro_torch.kernels.reproject_match import fused, kernel
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
 
     return {
         "reproject_match_pallas": kernel.reproject_match_pallas,
@@ -523,6 +570,8 @@ def kernel_wrappers():
         "reproject_match_fused": fused.reproject_match_fused,
         "flash_attention_pallas": flash_attention_pallas,
         "int8_matmul_pallas": int8_matmul_pallas,
+        "mamba2_ssd_pallas": mamba2_ssd_pallas,
+        "rwkv6_scan_pallas": rwkv6_scan_pallas,
     }
 
 
@@ -796,9 +845,9 @@ def efm_run(torch, device, backend, dtype, wrappers):
     return result
 
 
-def trace_token_flips(kern, ref, label):
+def trace_token_flips(kern, ref, label, tol=BF16_LOGIT_TOL):
     """At the first differing token of each prompt, both runs' logits that
-    chose it must put the two candidates within ``BF16_LOGIT_TOL``."""
+    chose it must put the two candidates within ``tol``."""
     notes = []
     for b in range(EFM_BATCH):
         diff = (kern["tokens"][b] != ref["tokens"][b]).nonzero().flatten()
@@ -810,9 +859,9 @@ def trace_token_flips(kern, ref, label):
         lr = ref["logits"][b] if t == 0 else ref["steps"][t - 1, b]
         mk = float(lk[tk] - lk[tr])
         mr = float(lr[tr] - lr[tk])
-        _need(0 <= mk <= BF16_LOGIT_TOL and 0 <= mr <= BF16_LOGIT_TOL,
+        _need(0 <= mk <= tol and 0 <= mr <= tol,
               f"{label}: prompt {b} token {t} differs ({tk} vs {tr}) with "
-              f"margins {mk}, {mr} above {BF16_LOGIT_TOL}")
+              f"margins {mk}, {mr} above {tol}")
         notes.append(f"prompt {b} token {t}: {tk} vs {tr}, margins "
                      f"{mk:.4f} / {mr:.4f}")
     return notes
@@ -873,8 +922,6 @@ def phase_efm_profile(torch, device):
     """
     import numpy as np
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -895,9 +942,24 @@ def phase_efm_profile(torch, device):
         state = {k: c.clone() for k, c in padded.items()}
         greedy_decode_loop(model, params, state, first, EFM_PROMPT, EFM_NEW)
 
-    for name, fn, per, unit in (
-            ("prefill", lambda: prefill(params, batch), 1, "prefill"),
-            ("decode", run_decode, EFM_NEW, "step")):
+    profile_steps(torch, f"[8] {EFM_ARCH} bf16", (
+        ("prefill", lambda: prefill(params, batch), 1, "prefill"),
+        ("decode", run_decode, EFM_NEW, "step")))
+    del params, cache, padded, model
+    torch.cuda.empty_cache()
+
+
+def profile_steps(torch, label, runs):
+    """For each ``(name, fn, per, unit)``: a warm-up, a timed run (host
+    clock, no profiler) and a run under ``torch.profiler``; prints wall
+    time, device busy time (the sum of the device-side events) and the
+    idle share it leaves of the unprofiled wall time, device launches, and
+    the device time by kernel, each per ``unit`` (``per`` of them a run).
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn, per, unit in runs:
         fn()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -912,7 +974,7 @@ def phase_efm_profile(torch, device):
                 if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in rows)
         _need(busy_us > 0, f"profile of the {name}: no device time")
-        print(f"[8] {EFM_ARCH} bf16 {name}: wall {wall_us / per:.1f} "
+        print(f"{label} {name}: wall {wall_us / per:.1f} "
               f"us/{unit}, device busy {busy_us / per:.1f} us/{unit}, idle "
               f"share {1 - busy_us / wall_us:.3f}, device launches "
               f"{sum(e.count for e in rows) / per:.1f}/{unit}")
@@ -920,8 +982,6 @@ def phase_efm_profile(torch, device):
             print(f"    {e.self_device_time_total / per:10.1f} us/{unit} "
                   f"{e.self_device_time_total / busy_us:6.1%} "
                   f"{e.count:6d} x  {e.key[:70]}")
-    del params, cache, padded, model
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1219,6 +1279,372 @@ def phase_baselines(torch, device, epic, n_frames=N_FRAMES):
 
 
 # ---------------------------------------------------------------------------
+# Phases 13-14: the scan kernels against their plain version; times.
+# ---------------------------------------------------------------------------
+
+
+def rwkv_inputs(torch, device, b, h, t, dk, dv, dtype, seed, strong=False,
+                native=False):
+    """The reference test's draws (tests/test_kernels.py:205-215), on the
+    card; ``strong`` takes w_log = -exp(2 z).  ``native`` lays r, k, v,
+    w_log out as the model hands them over: (B, T, H, .) seen as
+    (B, H, T, .)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def n(*shape):
+        if native:
+            return torch.randn(shape[0], shape[2], shape[1], shape[3],
+                               generator=g, device=device).transpose(1, 2)
+        return torch.randn(*shape, generator=g, device=device)
+
+    r, k, v = 0.5 * n(b, h, t, dk), 0.5 * n(b, h, t, dk), 0.5 * n(b, h, t, dv)
+    z = n(b, h, t, dk)
+    w = -torch.exp(2.0 * z) if strong else -torch.exp(0.5 * z - 2.0)
+    u = 0.3 * torch.randn(h, dk, generator=g, device=device)
+    return [x.to(dtype) for x in (r, k, v, w, u)]
+
+
+def ssd_inputs(torch, device, b, h, t, p, n, dtype, seed, strong=False,
+               native=False):
+    """The reference test's draws (tests/test_kernels.py:241-247);
+    ``native`` lays x and a_log out as the model hands them over."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    if native:
+        x, z = (0.5 * rn(b, t, h, p).transpose(1, 2),
+                rn(b, t, h).transpose(1, 2))
+    else:
+        x, z = 0.5 * rn(b, h, t, p), rn(b, h, t)
+    a = -torch.exp(2.0 * z) if strong else -torch.exp(0.5 * z - 2.0)
+    return [y.to(dtype) for y in (x, a, 0.5 * rn(b, t, n), 0.5 * rn(b, t, n))]
+
+
+def phase_scans(torch, device):
+    """Returns the largest |kernel - plain| of each kernel at its model's
+    full-width shape, in the path's dtype (RWKV6 bf16, SSD float32) and
+    layout ((B, T, H, .) seen transposed), as the models hand them over."""
+    from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_ref
+    from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    ops = {"rwkv6_scan_pallas": (rwkv_inputs, rwkv6_scan_pallas,
+                                 rwkv6_scan_chunked, rwkv6_scan_ref, bf16),
+           "mamba2_ssd_pallas": (ssd_inputs, mamba2_ssd_pallas,
+                                 mamba2_ssd_chunked, mamba2_ssd_ref, f32)}
+    cases = []
+    for name, shapes, full in (("rwkv6_scan_pallas", RWKV_TEST_SHAPES,
+                                RWKV_FULL),
+                               ("mamba2_ssd_pallas", SSD_TEST_SHAPES,
+                                SSD_FULL)):
+        for shape in shapes:
+            for strong in (False, True):
+                cases.append((name, shape, f32, strong, False))
+        for dtype in (f32, bf16):
+            for strong in (False, True):
+                for native in (False, True):
+                    cases.append((name, full, dtype, strong, native))
+    main_err = {}
+    for i, (name, shape, dtype, strong, native) in enumerate(cases):
+        make, kernel, chunked, ref, path_dtype = ops[name]
+        *dims, chunk = shape
+        args = make(torch, device, *dims, dtype, SEED + i, strong, native)
+        out, state = kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        _need(out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(state).all()),
+              f"{name} {shape}: output {out.dtype}, not finite")
+        p_out, p_state = chunked(*args, chunk=chunk)
+        err = max(float((out - p_out).abs().max()),
+                  float((state - p_state).abs().max()))
+        line = (f"[13] {name} {tuple(dims)} chunk {chunk} "
+                f"{str(dtype).split('.')[1]}{' strong decay' if strong else ''}"
+                f"{' (B,T,H,.) layout' if native else ''}"
+                f": kernel vs plain max|err| {err:.3g} (tol {SCAN_TOL})")
+        _need(err <= SCAN_TOL, line)
+        if shape not in (RWKV_FULL, SSD_FULL):
+            r_out, r_state = ref(*args)
+            ref_err = max(float((out - r_out).abs().max()),
+                          float((state - r_state).abs().max()))
+            line += f", vs the sequential oracle {ref_err:.3g}"
+            _need(ref_err <= SCAN_TOL, line)
+        print(line)
+        if native and dtype == path_dtype and not strong:
+            main_err[name] = err
+    return main_err
+
+
+def rwkv_bound(b, h, t, dk, dv, c, elem_bytes):
+    """Least time of one RWKV6 scan: ``(ms, "bytes" | "operations",
+    flop, bytes)``.  r, k, w_log, v read once in their type, u as float32,
+    o and S written once as float32; 2 FLOP per multiply-add of the
+    products the chunked form needs, at the float32 peak (no tensor
+    cores): the intra-chunk r k^T and A v over the C (C + 1) / 2 pairs
+    s <= t (the diagonal is the bonus), r~ S and k^T v over K x V."""
+    nbytes = (3 * dk + dv) * b * h * t * elem_bytes + 4 * h * dk + 4 * (
+        b * h * t * dv + b * h * dk * dv)
+    pairs = c * (c + 1) // 2
+    flop = b * h * (t // c) * (2 * pairs * (dk + dv) + 4 * c * dk * dv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / FP32_FLOP_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, flop, nbytes
+
+
+def ssd_bound(b, h, t, p, n, c, elem_bytes):
+    """Least time of one SSD scan, as :func:`rwkv_bound`: x, a_log, B, C
+    read once, y and h written once as float32; C B^T over the C (C + 1) / 2
+    pairs s <= t once per batch row and chunk (B and C are shared by the
+    heads), and per head M x over those pairs, C h and B^T x over N x P."""
+    nbytes = (b * h * t * p + b * h * t + 2 * b * t * n) * elem_bytes + 4 * (
+        b * h * t * p + b * h * n * p)
+    pairs = c * (c + 1) // 2
+    flop = b * (t // c) * (2 * pairs * n
+                           + h * (2 * pairs * p + 4 * c * n * p))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / FP32_FLOP_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, flop, nbytes
+
+
+def phase_scan_times(torch, device):
+    """Kernel and plain times at the full-width shapes, in the dtype and
+    layout each model hands its scan (RWKV6 bf16, SSD float32)."""
+    from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+
+    times = {}
+    for name, make, kernel, chunked, shape, dtype, bound_fn in (
+            ("rwkv6_scan_pallas", rwkv_inputs, rwkv6_scan_pallas,
+             rwkv6_scan_chunked, RWKV_FULL, torch.bfloat16, rwkv_bound),
+            ("mamba2_ssd_pallas", ssd_inputs, mamba2_ssd_pallas,
+             mamba2_ssd_chunked, SSD_FULL, torch.float32, ssd_bound)):
+        *dims, chunk = shape
+        args = make(torch, device, *dims, dtype, SEED, native=True)
+        ms = device_ms(torch, lambda: kernel(*args, chunk=chunk), per_graph=5,
+                       replays=10)
+        plain_ms = device_ms(torch, lambda: chunked(*args, chunk=chunk),
+                             per_graph=2, replays=5)
+        elem = torch.finfo(dtype).bits // 8
+        bound_ms, bound_by, flop, nbytes = bound_fn(*dims, chunk, elem)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        print(f"[14] {name}: {tuple(dims)} chunk {chunk} "
+              f"{str(dtype).split('.')[1]}: kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}: {flop / 1e9:.3f} GFLOP at 67 TFLOP/s f32, "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+              f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s; no single PyTorch "
+              f"call computes this op")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the RWKV6 and hybrid answer paths.
+# ---------------------------------------------------------------------------
+
+
+def pad_serve_state(torch, state, n):
+    """Room for ``n`` decoded tokens: the hybrid's KV caches get ``n``
+    more slots (empty: ``slot_pos = -1``), where the positions after the
+    prompt land while it is shorter than the window; the RWKV6 state is
+    O(1) and unchanged."""
+    import torch.nn.functional as F
+
+    if "slot_pos" not in state:
+        return state
+    out = dict(state)
+    out["k"] = F.pad(state["k"], (0, 0, 0, n))
+    out["v"] = F.pad(state["v"], (0, 0, 0, n))
+    out["slot_pos"] = F.pad(state["slot_pos"], (0, n), value=-1)
+    return out
+
+
+def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
+                  n_layers=None):
+    """``arch`` on ``scan_backend`` with all dtypes ``dtype`` (``n_layers``
+    cuts the depth): a warm-up prefill, then (counts set to 0) a timed
+    prefill and ``SSM_NEW`` greedy tokens.  Returns the results."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype,
+                                   cache_dtype=dtype)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = build_model(cfg, device=device, scan_backend=scan_backend)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (EFM_BATCH, EFM_PROMPT)), device=device)}
+    prefill = jit_prefill(model)
+    steps = []
+
+    def decode_step(p, c, t, pos):
+        logits, c = model.decode_step(p, c, t, pos)
+        steps.append(logits[:, -1].float().clone())
+        return logits, c
+
+    recording = dataclasses.replace(model, decode_step=decode_step)
+
+    prefill(params, batch)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    prefill_state = {k: v.clone() for k, v in state.items()}
+    state = pad_serve_state(torch, state, SSM_NEW)
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    out, state = greedy_decode_loop(recording, params, state, first,
+                                    EFM_PROMPT, SSM_NEW)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decode_launches = {k: w.launches - launches[k]
+                       for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    label = f"{arch} {dtype} scan_backend={scan_backend!r}"
+    _need(tuple(logits.shape) == (EFM_BATCH, 1, cfg.vocab)
+          and logits.dtype == torch.float32,
+          f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
+    _need(tuple(out.shape) == (EFM_BATCH, SSM_NEW + 1)
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{label}: tokens {tuple(out.shape)}")
+    step_logits = torch.stack(steps)
+    _need(bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(step_logits).all()),
+          f"{label}: non-finite logits")
+    _need(all(v.device == device and (not v.dtype.is_floating_point
+                                      or bool(torch.isfinite(v).all()))
+              for v in state.values()), f"{label}: serve state")
+    _need(not any(decode_launches.values()),
+          f"{label}: decode launched {decode_launches}")
+    depth = "" if n_layers is None else f" (depth cut to {n_layers})"
+    print(f"[15] {label}{depth}: prefill {EFM_BATCH}x{EFM_PROMPT} tokens "
+          f"in {t_prefill * 1e3:.2f} ms ({EFM_BATCH * EFM_PROMPT / t_prefill:.0f}"
+          f" tokens/s), decode {SSM_NEW} steps in {t_decode * 1e3:.2f} ms "
+          f"({t_decode / SSM_NEW * 1e3:.2f} ms/step, "
+          f"{EFM_BATCH * SSM_NEW / t_decode:.1f} tokens/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in prefill "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    result = dict(logits=logits[:, -1], steps=step_logits, tokens=out,
+                  launches=launches, state=prefill_state)
+    del params, state, model, recording
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_recurrent(torch, device, arch):
+    """Phase 15's bf16 ``"pallas"`` run of ``arch`` under
+    ``torch.profiler``, as phase 8 profiles TinyLlama's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device=device, scan_backend="pallas")
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (EFM_BATCH, EFM_PROMPT)), device=device)}
+    prefill = jit_prefill(model)
+    logits, state = prefill(params, batch)
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+    def run_decode():
+        fresh = pad_serve_state(torch, {k: v.clone() for k, v in
+                                        state.items()}, SSM_NEW)
+        greedy_decode_loop(model, params, fresh, first, EFM_PROMPT, SSM_NEW)
+
+    profile_steps(torch, f"[15] {arch} bf16 pallas", (
+        ("prefill", lambda: prefill(params, batch), 1, "prefill"),
+        ("decode", run_decode, SSM_NEW, "step")))
+    del params, state, model
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent(torch, device, wrappers):
+    """Both models on both backends; returns each kernel's launches in its
+    model's bf16 ``"pallas"`` prefill."""
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for arch, (kernel, cut) in SSM_ARCHS.items():
+        for dtype, n_layers in (("bfloat16", None), ("float32", cut)):
+            kern = recurrent_run(torch, device, arch, "pallas", dtype,
+                                 wrappers, n_layers)
+            plain = recurrent_run(torch, device, arch, "chunked", dtype,
+                                  wrappers, n_layers)
+            depth = n_layers or get_config(arch).n_layers
+            _need(kern["launches"][kernel] == depth,
+                  f"{arch} {dtype}: {kern['launches'][kernel]} {kernel} "
+                  f"launches in one prefill, not {depth}")
+            _need(not any(plain["launches"].values())
+                  and sum(kern["launches"].values()) == depth,
+                  f"{arch} {dtype}: other kernels launched: "
+                  f"{kern['launches']}, {plain['launches']}")
+            err = float((kern["logits"] - plain["logits"]).abs().max())
+            if dtype == "float32":
+                step_err = float((kern["steps"] - plain["steps"]).abs().max())
+                state_err = {}
+                for k, v in kern["state"].items():
+                    if v.dtype.is_floating_point:
+                        scale = max(1.0, float(plain["state"][k].abs().max()))
+                        state_err[k] = float(
+                            (v - plain["state"][k]).abs().max()) / scale
+                    else:
+                        _need(torch.equal(v, plain["state"][k]),
+                              f"{arch}: {k} differs between the backends")
+                notes = trace_token_flips(kern, plain, f"{arch} float32",
+                                          F32_LOGIT_TOL)
+                _need(max(err, step_err, *state_err.values())
+                      <= F32_LOGIT_TOL,
+                      f"{arch} float32: pallas vs chunked logits {err}, "
+                      f"decode {step_err}, state (relative to its scale) "
+                      f"{state_err} > {F32_LOGIT_TOL}")
+                print(f"[15] {arch} float32, {depth} layers, pallas vs "
+                      f"chunked: max|d logits| prefill {err:.3g}, decode "
+                      f"steps {step_err:.3g}, serve state (over its scale) "
+                      + ", ".join(f"{k} {e:.3g}" for k, e in state_err.items())
+                      + f" (tol {F32_LOGIT_TOL}); greedy tokens "
+                      + ("equal" if not notes else "; ".join(notes)))
+            else:
+                launches[kernel] = kern["launches"][kernel]
+                _need(err <= BF16_LOGIT_TOL, f"{arch} bfloat16: prefill "
+                      f"logits differ by {err} > {BF16_LOGIT_TOL}")
+                notes = trace_token_flips(kern, plain, f"{arch} bfloat16")
+                n_diff = int((kern["tokens"] != plain["tokens"]).sum())
+                print(f"[15] {arch} bfloat16 pallas vs chunked: max|d "
+                      f"logits| prefill {err:.3g} (tol {BF16_LOGIT_TOL}); "
+                      f"greedy tokens "
+                      f"{'equal' if not n_diff else f'{n_diff} differ'}"
+                      + "".join(f"; {n}" for n in notes))
+                profile_recurrent(torch, device, arch)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1245,23 +1671,23 @@ def main() -> int:
     errs = phase_kernels(torch, device)
     times = phase_times(torch, device)
     launches = phase_main_path(torch, device)
-    errs["flash"] = phase_flash(torch, device)
+    errs["flash_attention_pallas"] = phase_flash(torch, device)
     times["flash_attention_pallas"] = phase_flash_times(torch, device)
     launches["flash_attention_pallas"] = phase_efm(torch, device,
                                                    kernel_wrappers())
     phase_efm_profile(torch, device)
-    operands, errs["int8"] = phase_int8(torch, device)
+    operands, errs["int8_matmul_pallas"] = phase_int8(torch, device)
     times["int8_matmul_pallas"] = phase_int8_times(torch, device, operands)
     launches["int8_matmul_pallas"], epic = phase_int8_main_path(torch, device)
     phase_baselines(torch, device, epic)
+    errs.update(phase_scans(torch, device))
+    times.update(phase_scan_times(torch, device))
+    launches.update(phase_recurrent(torch, device, kernel_wrappers()))
 
     rows = []
     for name, (replaces, source) in KERNELS.items():
-        err_key = ("flash" if name == "flash_attention_pallas" else
-                   "int8" if name == "int8_matmul_pallas" else
-                   "sparse" if "tiled" in name else "main")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=launches[name], max_abs_err=errs[err_key],
+                   launches=launches[name], max_abs_err=errs[name],
                    library_ms=None)
         row.update(times[name])
         rows.append(row)

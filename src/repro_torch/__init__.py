@@ -1,9 +1,10 @@
 """EPIC in PyTorch for NVIDIA Hopper: the port of the JAX package ``repro``.
 
 The package mirrors ``src/repro`` file for file and imports nothing from
-it, nor JAX.  The reproject-match, flash-attention and int8 matmul kernels are
-hand-written CUDA (``kernels/*/csrc``, built by ``kernels/_build.py``);
-everything else is plain PyTorch.
+it, nor JAX.  The reproject-match, flash-attention, int8 matmul, RWKV6
+scan and Mamba-2 SSD scan kernels are hand-written CUDA
+(``kernels/*/csrc``, built by ``kernels/_build.py``); everything else is
+plain PyTorch.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: :func:`resolve_device` raises when no card is present

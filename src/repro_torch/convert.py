@@ -19,7 +19,8 @@ become ``(c,)``.
 
 The EFM models keep the reference's pytree layout (linear weights
 ``(d_in, d_out)``, layer stacks with a leading ``L`` axis), so
-:func:`dense_from_jax` only checks the tree and moves its leaves.
+:func:`dense_from_jax`, :func:`rwkv6_from_jax` and :func:`hybrid_from_jax`
+only check the tree and move its leaves.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import depth as depth_mod
 from repro_torch.core.depth import DepthNet
 from repro_torch.core.hir import HIRNet
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, rwkv6, transformer
 
 
 def hwio_to_oihw(w) -> torch.Tensor:
@@ -140,6 +141,22 @@ def dense_from_jax(params_np, cfg: ModelConfig, device=None):
     ``params_np`` is the JAX pytree as numpy arrays
     (``jax.tree.map(np.asarray, params)``), with the stacked ``L`` axis.
     """
+    return _model_from_jax(transformer, params_np, cfg, device)
+
+
+def rwkv6_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The RWKV6 model's parameters (``repro.models.rwkv6``) as the port's
+    tree, as :func:`dense_from_jax` does for the dense family."""
+    return _model_from_jax(rwkv6, params_np, cfg, device)
+
+
+def hybrid_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The Zamba2 hybrid's parameters (``repro.models.mamba2``) as the
+    port's tree, as :func:`dense_from_jax` does for the dense family."""
+    return _model_from_jax(mamba2, params_np, cfg, device)
+
+
+def _model_from_jax(module, params_np, cfg: ModelConfig, device):
     device = resolve_device(device)
-    expected = transformer.init(None, cfg, torch.device("meta"))
+    expected = module.init(None, cfg, torch.device("meta"))
     return _tree_from_jax(expected, params_np, "", device)

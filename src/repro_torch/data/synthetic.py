@@ -96,6 +96,27 @@ def look_at_pose(eye: Tensor, target: Tensor) -> Tensor:
     return geo.pose_from_rt(rot, eye)
 
 
+def _fma_dot(xs, ys) -> Tensor:
+    """``sum_j xs[j] * ys[j]`` rounded as XLA's CPU einsum rounds a short
+    contraction: the first product rounded to float32, then each further
+    term added by one fused multiply-add, in index order.  Each step is
+    taken in float64 (where a float32 product is exact) and rounded to
+    float32.  ``torch.einsum`` rounds as XLA does on some CPUs and not on
+    others, so the renderer does not leave the order to it."""
+    acc = None
+    for x, y in zip(xs, ys):
+        term = x.double() * y.double()
+        acc = term.float() if acc is None else (acc.double() + term).float()
+    return acc
+
+
+def _sum_squares(x: Tensor) -> Tensor:
+    """``sum(x * x, -1)`` over a last axis of 3 as eager JAX computes it:
+    each product rounded, then added in index order."""
+    sq = [x[..., i] * x[..., i] for i in range(3)]
+    return (sq[0] + sq[1]) + sq[2]
+
+
 def render_frame(
     scene: Scene, pose: Tensor, intr: geo.Intrinsics, hw: Tuple[int, int]
 ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -116,7 +137,8 @@ def render_frame(
     )  # (H, W, 3)
     rot = pose[:3, :3]
     eye = pose[:3, 3]
-    dirs = torch.einsum("ij,hwj->hwi", rot, dirs_cam)
+    dirs = _fma_dot([rot[:, j] for j in range(3)],
+                    [dirs_cam[..., j:j + 1] for j in range(3)])  # rot @ d
 
     big = 1e6
     # Ground plane y = PLANE_Y.
@@ -128,9 +150,10 @@ def render_frame(
 
     # Spheres.
     oc = eye[None, :] - scene.centers  # (K, 3)
-    b = torch.einsum("hwi,ki->hwk", dirs, oc)  # (H, W, K)
-    a = (dirs * dirs).sum(dim=-1)[..., None]  # (H, W, 1)
-    c = (oc * oc).sum(dim=-1)[None, None, :] - scene.radii[None, None, :] ** 2
+    b = _fma_dot([dirs[..., i:i + 1] for i in range(3)],
+                 [oc[:, i] for i in range(3)])  # (H, W, K)
+    a = _sum_squares(dirs)[..., None]  # (H, W, 1)
+    c = _sum_squares(oc)[None, None, :] - scene.radii[None, None, :] ** 2
     disc = b * b - a * c
     sq = torch.sqrt(disc.clamp_min(0.0))
     t_sph = (-b - sq) / a
@@ -163,9 +186,9 @@ def render_frame(
     )
     light = torch.tensor([0.4, -0.8, -0.45], device=dev)
     light = light / torch.linalg.vector_norm(light)
-    lambert = 0.55 + 0.45 * torch.einsum("hwi,i->hw", normal, -light).clamp(
-        0.0, 1.0
-    )
+    facing = _fma_dot([normal[..., i] for i in range(3)],
+                      [-light[i] for i in range(3)])  # normal . -light
+    lambert = 0.55 + 0.45 * facing.clamp(0.0, 1.0)
     sphere_rgb = base * (stripes * lambert)[..., None]
 
     sky_rgb = torch.tensor([0.55, 0.70, 0.90], device=dev)

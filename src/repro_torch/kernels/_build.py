@@ -30,8 +30,12 @@ BASE_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Shared memory one block may use on Hopper (227 KB), dynamic beyond 48 KB.
+SMEM_PER_BLOCK = 232_448
+
 # ctypes argument types for the C entries' signatures.
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, I64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
 
 
 def _nvcc() -> str:

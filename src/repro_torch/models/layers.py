@@ -12,8 +12,7 @@ Port of ``repro/models/layers.py``.  Conventions (as in the reference):
   * Linear weights are ``(d_in, d_out)``, the reference's layout.
 
 Left out: cross-attention (``kv_ctx``, for the VLM and enc-dec families),
-the sliding window (``window``, for the hybrid family's shared blocks),
-the mesh helpers of sharded decode (``ROADMAP.md`` Queue 1 item 8),
+the mesh helpers of sharded decode (``ROADMAP.md`` Queue 1 item 6),
 ``remat_wrap`` and the loss (training).
 """
 
@@ -207,6 +206,7 @@ def attention_full(
     backend: str = "ref",
     compute_dtype=torch.float32,
     cache_dtype: Optional[torch.dtype] = None,
+    window: Optional[int] = None,
 ):
     """Full-sequence attention (train / prefill). Returns (B, S, D).
 
@@ -216,10 +216,17 @@ def attention_full(
     to ``compute_dtype`` before the f32 softmax where the kernel keeps
     them in f32.
 
+    ``window`` is a sliding window: query ``i`` sees keys ``j`` with
+    ``i - window < j``.  The flash kernel has no window, so ``"pallas"``
+    with a window raises (the reference quietly takes the masked path).
+
     With ``cache_dtype`` set it returns ``(out, cache)``: the prefix's KV
     cache, rotated keys and values cast to ``cache_dtype``, which the
     reference's ``attention_prefill_cache`` computes a second time.
     """
+    if backend == "pallas" and window is not None:
+        raise ValueError(f"the flash-attention kernel has no sliding window "
+                         f"(window={window}); use backend 'ref' or 'chunked'")
     b, s, _ = x.shape
     q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)
     k = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads)
@@ -239,17 +246,22 @@ def attention_full(
         )
     elif backend == "chunked":
         o = attention_chunked(
-            q, _repeat_kv(k, group), _repeat_kv(v, group), causal=causal
+            q, _repeat_kv(k, group), _repeat_kv(v, group), causal=causal,
+            window=window,
         )
     else:
         kr = _repeat_kv(k, group)
         vr = _repeat_kv(v, group)
         logits = torch.matmul(q, kr.transpose(-1, -2)).float()
         logits = logits / math.sqrt(head_dim)
+        qpos = torch.arange(s, device=x.device)[:, None]
+        kpos = torch.arange(s, device=x.device)[None, :]
+        keep = torch.ones((s, s), dtype=torch.bool, device=x.device)
         if causal:
-            qpos = torch.arange(s, device=x.device)[:, None]
-            kpos = torch.arange(s, device=x.device)[None, :]
-            logits = logits.masked_fill(kpos > qpos, _NEG_INF)
+            keep = kpos <= qpos
+        if window is not None:
+            keep = keep & (kpos > qpos - window)
+        logits = logits.masked_fill(~keep, _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(compute_dtype)
         o = torch.matmul(probs, vr)
     out = linear(p["wo"], _merge_heads(o), compute_dtype)
@@ -268,8 +280,12 @@ def attention_decode(
     *,
     rope_base: float = 10000.0,
     compute_dtype=torch.float32,
+    window: Optional[int] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step against a KV cache. Returns (out (B,1,D), cache).
+
+    With ``window`` the step sees the positions ``pos - window < j <=
+    pos`` of the cache.
 
     The new K/V are written into ``cache`` in place (the reference's
     serving step donates the cache to the same effect).  A position
@@ -301,7 +317,10 @@ def attention_decode(
     logits = torch.matmul(q, kr.transpose(-1, -2)).float()
     logits = logits / math.sqrt(head_dim)
     kpos = torch.arange(skv, device=x.device)
-    logits = logits.masked_fill(kpos > pos, _NEG_INF)
+    keep = kpos <= pos
+    if window is not None:
+        keep = keep & (kpos > pos - window)
+    logits = logits.masked_fill(~keep, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(compute_dtype)
     o = torch.matmul(probs, vr)
     out = linear(p["wo"], _merge_heads(o), compute_dtype)
@@ -314,6 +333,7 @@ def attention_chunked(
     v: Tensor,  # (B, H, Sk, Dh)
     *,
     causal: bool = True,
+    window: Optional[int] = None,
     q_chunk: int = 1024,
     k_chunk: int = 1024,
 ) -> Tensor:
@@ -354,6 +374,8 @@ def attention_chunked(
             mask = (kpos[None, :] < sk_real).expand(qc, kc)
             if causal:
                 mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
             s = s.masked_fill(~mask, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             pr = torch.exp(s - m_new[..., None])

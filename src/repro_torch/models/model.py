@@ -1,7 +1,8 @@
 """Unified model API: ``build_model(cfg)`` dispatches on ``cfg.family``.
 
-Port of ``repro/models/model.py`` for the dense family.  Every family
-exposes the same surface, so the server never branches on architecture:
+Port of ``repro/models/model.py`` for the dense, rwkv6 and hybrid
+families.  Every family exposes the same surface, so the server never
+branches on architecture:
 
   * ``init(generator)                -> params``  (drawn on ``device``)
   * ``forward(params, batch)         -> logits``
@@ -9,10 +10,13 @@ exposes the same surface, so the server never branches on architecture:
   * ``init_serve(batch, max_seq)     -> serve_state``  (zeros)
   * ``decode_step(params, state, token, pos) -> (logits, state)``
 
-The batch of the dense family is ``{"tokens": (B, S) int}``.  The model
+The batch of these families is ``{"tokens": (B, S) int}``.  The model
 lives on one device, fixed when it is built: the CUDA card unless the
-caller passes ``device="cpu"``.  The reference's ``loss_fn`` (training)
-and its shape specs (sharded lowering) are not ported yet.
+caller passes ``device="cpu"``.  ``scan_backend`` picks the scan of the
+rwkv6 and hybrid prefills: the reference's ``"chunked"`` by default,
+``"pallas"`` for the CUDA kernels (the dense family has no scan).  The
+reference's ``loss_fn`` (training) and its shape specs (sharded lowering)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Any]
+SCAN_BACKENDS = ("chunked", "ref", "pallas")
 
 # Families of the JAX package that the port does not run yet.
-_NOT_PORTED = ("moe_mla", "rwkv6", "hybrid", "vlm", "encdec")
+_NOT_PORTED = ("moe_mla", "vlm", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,24 +48,54 @@ class Model:
     decode_step: Callable[[Params, Any, Tensor, int], Any]
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, device=None, *,
+                scan_backend: str = "chunked") -> Model:
     """The model of ``cfg`` on ``device`` (default: the CUDA card)."""
     fam = cfg.family
     if fam in _NOT_PORTED:
         raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP.md, Queue 1 item 7)"
+            f"family {fam!r} is not ported yet (ROADMAP.md, Queue 1 item 5)"
         )
-    if fam != "dense":
+    if fam not in ("dense", "rwkv6", "hybrid"):
         raise ValueError(f"unknown family: {fam}")
-    from repro_torch.models import transformer as M
-
+    if scan_backend not in SCAN_BACKENDS:
+        raise ValueError(f"unknown scan backend {scan_backend!r}; known: "
+                         f"{SCAN_BACKENDS}")
     device = resolve_device(device)
+    if fam == "dense":
+        from repro_torch.models import transformer as M
+
+        return Model(
+            cfg=cfg,
+            device=device,
+            init=lambda gen: M.init(gen, cfg, device),
+            forward=lambda p, b: M.forward(p, b["tokens"], cfg),
+            prefill=lambda p, b: M.prefill(p, b["tokens"], cfg),
+            init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
+            decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        )
+    if fam == "rwkv6":
+        from repro_torch.models import rwkv6 as M
+
+        return Model(
+            cfg=cfg,
+            device=device,
+            init=lambda gen: M.init(gen, cfg, device),
+            forward=lambda p, b: M.forward(p, b["tokens"], cfg),
+            prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
+                                           scan_backend=scan_backend),
+            init_serve=lambda bs, s: M.init_state(cfg, bs, device),
+            decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        )
+    from repro_torch.models import mamba2 as M
+
     return Model(
         cfg=cfg,
         device=device,
         init=lambda gen: M.init(gen, cfg, device),
         forward=lambda p, b: M.forward(p, b["tokens"], cfg),
-        prefill=lambda p, b: M.prefill(p, b["tokens"], cfg),
+        prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
+                                       scan_backend=scan_backend),
         init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
         decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
     )

@@ -1,0 +1,314 @@
+"""RWKV6 "Finch" language model (attention-free, data-dependent decay).
+
+Port of ``repro/models/rwkv6.py``.  Block = TimeMix (the RWKV6 linear
+attention with per-channel dynamic decay, computed by the ``rwkv6_scan``
+op) + ChannelMix (squared-ReLU FFN with token-shift), both with the RWKV6
+"ddlerp" dynamic token-shift mixing:
+
+  delta_t  = x_{t-1} - x_t
+  xx       = x + delta * mu_x
+  mix_i    = mu_i + tanh(xx @ A) @ B_i          (low-rank, per branch i)
+  x_i      = x + delta * mix_i                  for i in {r, k, v, w, g}
+
+Decay: w_log = -exp(w0 + tanh(x_w @ Aw) @ Bw)   (always < 0, data-dependent)
+
+Serving state per layer: (shift_tm (B, D), shift_cm (B, D), wkv (B, H, K,
+V)), O(1) in context length.  The layer stack keeps the reference's
+layout (a leading ``L`` axis) and a Python loop takes the place of
+``lax.scan``.  ``prefill`` takes the scan's backend: the reference's
+``"chunked"`` by default, ``"pallas"`` for the CUDA kernel.  Left out:
+``loss_fn`` and remat (training).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import layer_params
+
+Params = Dict[str, Any]
+
+_TM_BRANCHES = 5  # r, k, v, w, g
+
+
+def _heads(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.rwkv_head_dim
+
+
+def init_block(gen, cfg: ModelConfig, lead=(), device=None) -> Params:
+    d, r = cfg.d_model, cfg.rwkv_lora_rank
+    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    s = 1.0 / math.sqrt(d)
+    pdt = cfg.pdt
+
+    def zeros(*shape):
+        return torch.zeros((*lead, *shape), dtype=pdt, device=device)
+
+    def lin(din, dout):
+        return L.init_linear(gen, din, dout, dtype=pdt, lead=lead,
+                             device=device)
+
+    def ln():
+        return L.init_layernorm(d, dtype=pdt, lead=lead, device=device)
+
+    return {
+        "ln1": ln(),
+        "tm": {
+            "mu_x": zeros(d),
+            "mu": zeros(_TM_BRANCHES, d),
+            "lora_a": L._normal(gen, (*lead, d, r), s, pdt, device),
+            "lora_b": zeros(_TM_BRANCHES, r, d),
+            "w0": torch.full((*lead, d), -2.0, dtype=pdt, device=device),
+            "decay_a": L._normal(gen, (*lead, d, cfg.rwkv_decay_lora_rank),
+                                 s, pdt, device),
+            "decay_b": zeros(cfg.rwkv_decay_lora_rank, d),
+            "u": L._normal(gen, (*lead, h, hd), 0.3, pdt, device),
+            "wr": lin(d, d),
+            "wk": lin(d, d),
+            "wv": lin(d, d),
+            "wg": lin(d, d),
+            "gn_scale": torch.ones((*lead, h, hd), dtype=pdt, device=device),
+            "gn_bias": zeros(h, hd),
+            "wo": lin(d, d),
+        },
+        "ln2": ln(),
+        "cm": {
+            "mu_k": zeros(d),
+            "mu_r": zeros(d),
+            "wk": lin(d, cfg.d_ff),
+            "wv": lin(cfg.d_ff, d),
+            "wr": lin(d, d),
+        },
+    }
+
+
+def _ddlerp(tm: Params, x: Tensor, x_prev: Tensor, cdt) -> Tuple[Tensor, ...]:
+    """RWKV6 dynamic token-shift mixing -> (x_r, x_k, x_v, x_w, x_g)."""
+    delta = x_prev - x
+    xx = x + delta * tm["mu_x"].to(cdt)
+    low = torch.tanh(torch.matmul(xx, tm["lora_a"].to(cdt)))  # (..., r)
+    d = x.shape[-1]
+    mu = tm["mu"].to(cdt).reshape((_TM_BRANCHES,) + (1,) * (x.ndim - 1) + (d,))
+    mixes = mu + torch.einsum("...r,brd->b...d", low,
+                              tm["lora_b"].to(cdt))  # (5, ..., d)
+    return tuple(x + delta * mixes[i] for i in range(_TM_BRANCHES))
+
+
+def _decay_log(tm: Params, x_w: Tensor, cdt) -> Tensor:
+    """Data-dependent per-channel log decay (< 0)."""
+    dyn = torch.matmul(
+        torch.tanh(torch.matmul(x_w, tm["decay_a"].to(cdt))),
+        tm["decay_b"].to(cdt),
+    )
+    return -torch.exp(tm["w0"].to(cdt) + dyn)
+
+
+def _group_norm(tm: Params, o: Tensor, eps: float = 1e-5) -> Tensor:
+    """Per-head layernorm of the wkv output. o: (B, T, H, hd)."""
+    mu = torch.mean(o, dim=-1, keepdim=True)
+    var = torch.var(o, dim=-1, keepdim=True, correction=0)
+    y = (o - mu) * torch.rsqrt(var + eps)
+    return y * tm["gn_scale"].to(o.dtype) + tm["gn_bias"].to(o.dtype)
+
+
+def _shift(x: Tensor) -> Tensor:
+    """x_{t-1} along the sequence axis, zeros at t = 0."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def time_mix(
+    tm: Params,
+    x: Tensor,
+    cfg: ModelConfig,
+    *,
+    backend: str = "ref",
+    return_state: bool = False,
+):
+    """Full-sequence TimeMix. x: (B, T, D) -> (B, T, D) [, final wkv state]."""
+    b, t, d = x.shape
+    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    cdt = cfg.cdt
+    x_r, x_k, x_v, x_w, x_g = _ddlerp(tm, x, _shift(x), cdt)
+
+    def heads(y):
+        return y.reshape(b, t, h, hd).transpose(1, 2)
+
+    r = heads(L.linear(tm["wr"], x_r, cdt))
+    k = heads(L.linear(tm["wk"], x_k, cdt))
+    v = heads(L.linear(tm["wv"], x_v, cdt))
+    g = F.silu(L.linear(tm["wg"], x_g, cdt))
+    w_log = heads(_decay_log(tm, x_w, cdt))
+
+    o, s_fin = rwkv6_scan(r, k, v, w_log, tm["u"].to(cdt), backend=backend,
+                          chunk=cfg.scan_chunk)  # (B, H, T, hd)
+    o = o.to(cdt).transpose(1, 2)  # (B, T, H, hd)
+    o = _group_norm(tm, o).reshape(b, t, d)
+    out = L.linear(tm["wo"], o * g, cdt)
+    if return_state:
+        return out, s_fin
+    return out
+
+
+def _channel_mix_tokens(cm: Params, x: Tensor, x_prev: Tensor, cdt) -> Tensor:
+    delta = x_prev - x
+    x_k = x + delta * cm["mu_k"].to(cdt)
+    x_r = x + delta * cm["mu_r"].to(cdt)
+    k = torch.square(torch.relu(L.linear(cm["wk"], x_k, cdt)))
+    r = torch.sigmoid(L.linear(cm["wr"], x_r, cdt))
+    return r * L.linear(cm["wv"], k, cdt)
+
+
+def channel_mix(cm: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    return _channel_mix_tokens(cm, x, _shift(x), cfg.cdt)
+
+
+def block_apply(cfg: ModelConfig, lp: Params, x: Tensor, *,
+                backend: str = "ref") -> Tensor:
+    x = x + time_mix(lp["tm"], L.layernorm(lp["ln1"], x), cfg,
+                     backend=backend).to(x.dtype)
+    x = x + channel_mix(lp["cm"], L.layernorm(lp["ln2"], x), cfg).to(x.dtype)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def init(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> Params:
+    """Random parameters at the reference's scales, drawn on ``device``
+    from ``gen`` (``None`` only for the shapes, on the meta device)."""
+    return {
+        "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdt,
+                                  device),
+        "ln_in": L.init_layernorm(cfg.d_model, dtype=cfg.pdt, device=device),
+        "layers": init_block(gen, cfg, (cfg.n_layers,), device),
+        "final_norm": L.init_layernorm(cfg.d_model, dtype=cfg.pdt,
+                                       device=device),
+    }
+
+
+def forward(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    """(B, S) int -> (B, S, V) fp32 logits (the scan on ``"ref"``, as the
+    reference's ``block_apply`` has it)."""
+    x = L.embed(p["embed"], tokens, cfg.cdt)
+    x = L.layernorm(p["ln_in"], x)
+    for i in range(cfg.n_layers):
+        x = block_apply(cfg, layer_params(p["layers"], i), x)
+    x = L.layernorm(p["final_norm"], x)
+    return L.unembed(p["embed"], x, cfg.cdt)
+
+
+def prefill(
+    p: Params, tokens: Tensor, cfg: ModelConfig, *,
+    scan_backend: str = "chunked",
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Ingest a prefix; returns (last-token logits, recurrent serve state).
+
+    ``scan_backend`` is the ``rwkv6_scan`` backend of every layer:
+    ``"chunked"`` (the reference's), ``"ref"`` or ``"pallas"``.
+    """
+    x = L.embed(p["embed"], tokens, cfg.cdt)
+    x = L.layernorm(p["ln_in"], x)
+    sh_tm, sh_cm, wkv = [], [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(p["layers"], i)
+        h1 = L.layernorm(lp["ln1"], x)
+        a, s_fin = time_mix(lp["tm"], h1, cfg, backend=scan_backend,
+                            return_state=True)
+        x = x + a.to(x.dtype)
+        h2 = L.layernorm(lp["ln2"], x)
+        x = x + channel_mix(lp["cm"], h2, cfg).to(x.dtype)
+        sh_tm.append(h1[:, -1])
+        sh_cm.append(h2[:, -1])
+        wkv.append(s_fin)
+    x = L.layernorm(p["final_norm"], x[:, -1:])
+    logits = L.unembed(p["embed"], x, cfg.cdt)
+    state = {
+        "shift_tm": torch.stack(sh_tm).float(),
+        "shift_cm": torch.stack(sh_cm).float(),
+        "wkv": torch.stack(wkv).float(),
+    }
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# Serving: O(1) recurrent state
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: ModelConfig, batch: int, device) -> Dict[str, Tensor]:
+    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    f32 = torch.float32
+    return {
+        "shift_tm": torch.zeros((cfg.n_layers, batch, cfg.d_model),
+                                dtype=f32, device=device),
+        "shift_cm": torch.zeros((cfg.n_layers, batch, cfg.d_model),
+                                dtype=f32, device=device),
+        "wkv": torch.zeros((cfg.n_layers, batch, h, hd, hd), dtype=f32,
+                           device=device),
+    }
+
+
+def _tm_step(
+    tm: Params, x: Tensor, shift: Tensor, wkv: Tensor, cfg: ModelConfig
+) -> Tuple[Tensor, Tensor]:
+    """One-token TimeMix. x: (B, D); wkv: (B, H, K, V)."""
+    b, d = x.shape
+    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    cdt = cfg.cdt
+    x_r, x_k, x_v, x_w, x_g = _ddlerp(tm, x, shift, cdt)
+    r = L.linear(tm["wr"], x_r, cdt).reshape(b, h, hd)
+    k = L.linear(tm["wk"], x_k, cdt).reshape(b, h, hd)
+    v = L.linear(tm["wv"], x_v, cdt).reshape(b, h, hd)
+    g = F.silu(L.linear(tm["wg"], x_g, cdt))
+    w_log = _decay_log(tm, x_w, cdt).reshape(b, h, hd)
+    u = tm["u"].to(cdt)
+
+    kv = k[..., None] * v[..., None, :]  # (B, H, K, V)
+    o = torch.einsum("bhk,bhkv->bhv", r.to(wkv.dtype),
+                     wkv + u[None, :, :, None] * kv)
+    wkv_new = torch.exp(w_log)[..., None] * wkv + kv
+    o = _group_norm(tm, o[:, None])[:, 0]  # (B, H, hd)
+    o = o.reshape(b, d)
+    return L.linear(tm["wo"], o * g, cdt), wkv_new
+
+
+def decode_step(
+    p: Params,
+    state: Dict[str, Tensor],
+    token: Tensor,  # (B, 1)
+    pos: int,  # unused (stateful arch); kept for API parity
+    cfg: ModelConfig,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    cdt = cfg.cdt
+    x = L.embed(p["embed"], token[:, 0], cdt)
+    x = L.layernorm(p["ln_in"], x)
+    sh_tm, sh_cm, wkv = [], [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(p["layers"], i)
+        h1 = L.layernorm(lp["ln1"], x)
+        a, wkv_new = _tm_step(lp["tm"], h1, state["shift_tm"][i].to(cdt),
+                              state["wkv"][i], cfg)
+        x = x + a.to(x.dtype)
+        h2 = L.layernorm(lp["ln2"], x)
+        x = x + _channel_mix_tokens(lp["cm"], h2, state["shift_cm"][i].to(cdt),
+                                    cdt).to(x.dtype)
+        sh_tm.append(h1)
+        sh_cm.append(h2)
+        wkv.append(wkv_new)
+    x = L.layernorm(p["final_norm"], x)
+    logits = L.unembed(p["embed"], x, cdt)[:, None, :]
+    return logits, {
+        "shift_tm": torch.stack(sh_tm).float(),
+        "shift_cm": torch.stack(sh_cm).float(),
+        "wkv": torch.stack(wkv).float(),
+    }

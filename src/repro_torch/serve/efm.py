@@ -4,7 +4,7 @@ Port of ``repro/serve/efm.py``.  The reference compiles each step with
 ``jax.jit`` over a device mesh and returns it with its sharding specs;
 PyTorch runs eagerly, so here each step is a plain callable on the
 model's device, without gradients.  Sharding over a mesh is not ported
-yet (``ROADMAP.md``, Queue 1 item 8): passing a mesh raises.
+yet (``ROADMAP.md``, Queue 1 item 6): passing a mesh raises.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def _one_card(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "serving over a device mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8); pass mesh=None"
+            "(ROADMAP.md, Queue 1 item 6); pass mesh=None"
         )
 
 

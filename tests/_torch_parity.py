@@ -103,3 +103,21 @@ def stream_64(n_frames=40):
         k: np.asarray(getattr(s, k))
         for k in ("frames", "poses", "gazes", "depth")
     }
+
+
+def perturb_constant_leaves(params, seed=0, scale=0.1):
+    """A parameter pytree as numpy, each leaf that an ``init`` fills with
+    one value (zeros, ones, a constant decay) moved by seeded noise, so
+    that parity runs exercise the terms those leaves would switch off; the
+    random leaves are kept as drawn."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def move(a):
+        a = np.asarray(a)
+        if a.size > 1 and np.all(a == a.flat[0]):
+            return (a + scale * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+
+    return jax.tree.map(move, params)

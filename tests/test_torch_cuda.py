@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card, reproject-match, flash attention and int8
-matmul (marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
+"""The CUDA kernels on the card: reproject-match, flash attention, int8
+matmul, and the RWKV6 and Mamba-2 SSD scans (marked ``cuda``; skipped
+without a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -207,3 +208,171 @@ def test_int8_depth_network_launches_eight_kernels(device):
     q.matmul_backend = "ref"
     assert torch.equal(out, depth.forward_int8(q, x))
     assert int8_matmul_pallas.launches == before + 8
+
+
+# ---------------------------------------------------------------------------
+# The RWKV6 and Mamba-2 SSD scans: each kernel against its plain version
+# (the chunked form, whose arithmetic it follows) at the reference test's
+# shapes and at the full-width shapes, within the reference's gate of 2e-4
+# (tests/test_kernels.py:231-232, 263-264); and against the sequential
+# oracle at the reference test's shapes in float32.
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = 2e-4
+RWKV_SHAPES = [(1, 2, 128, 32, 32, 32), (2, 4, 256, 64, 64, 64),
+               (1, 1, 64, 16, 48, 16), (1, 2, 192, 64, 64, 64),
+               (4, 40, 1024, 64, 64, 32)]
+SSD_SHAPES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
+              (1, 1, 64, 64, 64, 64), (1, 3, 192, 32, 64, 32),
+              (4, 80, 1024, 64, 64, 64)]
+
+
+def _rwkv_inputs(device, b, h, t, dk, dv, dtype, strong, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    z = n(b, h, t, dk)
+    w = -torch.exp(2.0 * z) if strong else -torch.exp(0.5 * z - 2.0)
+    return [x.to(dtype) for x in (0.5 * n(b, h, t, dk), 0.5 * n(b, h, t, dk),
+                                  0.5 * n(b, h, t, dv), w, 0.3 * n(h, dk))]
+
+
+@pytest.mark.parametrize("shape", RWKV_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strong", [False, True])
+def test_rwkv6_kernel_matches_its_plain_version(device, shape, dtype,
+                                                strong):
+    from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    *dims, chunk = shape
+    args = _rwkv_inputs(device, *dims, dtype, strong, sum(shape))
+    before = rwkv6_scan_pallas.launches
+    o, s = rwkv6_scan_pallas(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_pallas.launches == before + 1
+    assert o.dtype == torch.float32 and s.dtype == torch.float32
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    po, ps = rwkv6_scan_chunked(*args, chunk=chunk)
+    assert float((o - po).abs().max()) <= SCAN_TOL
+    assert float((s - ps).abs().max()) <= SCAN_TOL
+    if dtype == torch.float32 and dims[2] <= 256:
+        ro, rs = rwkv6_scan_ref(*args)
+        assert float((o - ro).abs().max()) <= SCAN_TOL
+        assert float((s - rs).abs().max()) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_kernel_matches_its_plain_version(device, shape, dtype, strong):
+    from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_ref
+
+    b, h, t, p, n, chunk = shape
+    g = torch.Generator(device=device).manual_seed(sum(shape))
+    x = 0.5 * torch.randn(b, h, t, p, generator=g, device=device)
+    z = torch.randn(b, h, t, generator=g, device=device)
+    a = -torch.exp(2.0 * z) if strong else -torch.exp(0.5 * z - 2.0)
+    args = [y.to(dtype) for y in (
+        x, a, 0.5 * torch.randn(b, t, n, generator=g, device=device),
+        0.5 * torch.randn(b, t, n, generator=g, device=device))]
+    before = mamba2_ssd_pallas.launches
+    y, s = mamba2_ssd_pallas(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba2_ssd_pallas.launches == before + 1
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    py, ps = mamba2_ssd_chunked(*args, chunk=chunk)
+    assert float((y - py).abs().max()) <= SCAN_TOL
+    assert float((s - ps).abs().max()) <= SCAN_TOL
+    if dtype == torch.float32 and t <= 256:
+        ry, rs = mamba2_ssd_ref(*args)
+        assert float((y - ry).abs().max()) <= SCAN_TOL
+        assert float((s - rs).abs().max()) <= SCAN_TOL
+
+
+def test_scan_wrappers_reject_a_non_contiguous_tensor(device):
+    """The kernels read through strides, but the last dim must be
+    contiguous."""
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+
+    r = torch.zeros(1, 2, 16, 64, device=device).transpose(2, 3)
+    ok = torch.zeros(1, 2, 64, 16, device=device)
+    u = torch.zeros(2, 16, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan_pallas(r, ok, ok, ok, u, chunk=16)
+    x = torch.zeros(1, 2, 16, 64, device=device).transpose(2, 3)
+    a = torch.zeros(1, 2, 64, device=device)
+    bm = torch.zeros(1, 64, 8, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_ssd_pallas(x, a, bm, bm, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_ssd_pallas(x.contiguous(), a, bm, bm.transpose(1, 2)
+                          .contiguous().transpose(1, 2), chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_read_the_models_layout(device, dtype):
+    """(B, T, H, .) tensors seen as (B, H, T, .), as the models hand them
+    over, and B, C sliced out of a wider row: the same outputs, bitwise,
+    as from contiguous copies."""
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+
+    g = torch.Generator(device=device).manual_seed(7)
+
+    def bthk(b, t, h, k):
+        return torch.randn(b, t, h, k, generator=g, device=device).to(
+            dtype).transpose(1, 2)
+
+    r, k, v = (0.5 * bthk(2, 128, 3, 32) for _ in range(3))
+    w = -torch.exp(0.5 * bthk(2, 128, 3, 32).float() - 2.0).to(dtype)
+    u = 0.3 * torch.randn(3, 32, generator=g, device=device)
+    args = (r, k, v, w, u)
+    assert not r.is_contiguous()
+    got = rwkv6_scan_pallas(*args, chunk=32)
+    want = rwkv6_scan_pallas(*(x.contiguous() for x in args), chunk=32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    x = 0.5 * bthk(2, 128, 3, 64)
+    a = -torch.exp(0.5 * torch.randn(2, 128, 3, generator=g, device=device)
+                   - 2.0).to(dtype).transpose(1, 2)
+    bc = 0.5 * torch.randn(2, 128, 48, generator=g, device=device).to(dtype)
+    args = (x, a, bc[..., :16], bc[..., 24:40])
+    got = mamba2_ssd_pallas(*args, chunk=64)
+    want = mamba2_ssd_pallas(*(y.contiguous() for y in args), chunk=64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("arch,wrapper", [
+    ("rwkv6-3b", "rwkv6_scan_pallas"), ("zamba2-2.7b", "mamba2_ssd_pallas")])
+def test_prefill_on_pallas_launches_one_kernel_per_layer(device, arch,
+                                                         wrapper):
+    """A smoke-size prefill on ``scan_backend="pallas"``: one launch per
+    layer, logits within 1e-4 of the same prefill on ``"chunked"``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+    from repro_torch.models import build_model
+
+    fn = {"rwkv6_scan_pallas": rwkv6_scan_pallas,
+          "mamba2_ssd_pallas": mamba2_ssd_pallas}[wrapper]
+    cfg = get_smoke_config(arch)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(0))
+    out = {}
+    for backend in ("pallas", "chunked"):
+        model = build_model(cfg, device=device, scan_backend=backend)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        before = fn.launches
+        out[backend] = model.prefill(params, {"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        assert fn.launches - before == (cfg.n_layers if backend == "pallas"
+                                        else 0)
+    assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-4

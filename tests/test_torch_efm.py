@@ -34,6 +34,9 @@ from repro_torch.models import layers as TL
 from repro_torch.serve import efm as tefm
 
 B, PROMPT, NEW = 2, 24, 8
+# The dense architectures (test_torch_rwkv6.py and test_torch_hybrid.py
+# hold the other families the port runs).
+DENSE_IDS = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
 F32_TOL = 1e-5
 BF16_CACHE_TOL = 2e-2
 
@@ -49,7 +52,7 @@ def _tokens(cfg, seed=1):
     return rng.integers(0, cfg.vocab, (B, PROMPT + NEW)).astype(np.int32)
 
 
-@pytest.fixture(scope="module", params=ARCH_IDS)
+@pytest.fixture(scope="module", params=DENSE_IDS)
 def pair(request):
     """(arch, JAX params, the same params in the port) for one arch."""
     jcfg, tcfg = _cfgs(request.param)
@@ -141,7 +144,7 @@ def test_jit_decode_step_is_the_model_step(pair):
     assert torch.equal(a, b) and not a.requires_grad
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_init_matches_the_reference_tree_and_scales(arch):
     jcfg, tcfg = _cfgs(arch)
     spec = jax.eval_shape(jax_build_model(jcfg).init, jax.random.PRNGKey(0))
@@ -169,15 +172,14 @@ def test_full_configs_match_the_reference():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("deepseek-v2-lite-16b", "moe_mla"), ("rwkv6-3b", "rwkv6"),
-    ("zamba2-2.7b", "hybrid"), ("llama-3.2-vision-11b", "vlm"),
+    ("deepseek-v2-lite-16b", "moe_mla"), ("llama-3.2-vision-11b", "vlm"),
     ("seamless-m4t-large-v2", "encdec"),
 ])
 def test_unported_families_raise_naming_the_roadmap(arch, family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         get_config(arch)
     cfg = get_smoke_config("olmo-1b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         build_model(cfg, device="cpu")
 
 
@@ -194,7 +196,7 @@ def test_entry_points_need_a_device_without_cuda():
 def test_a_mesh_raises():
     tm = build_model(get_smoke_config("olmo-1b"), device="cpu")
     for fn in (tefm.jit_prefill, tefm.jit_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             fn(tm, mesh=object())
 
 

@@ -47,6 +47,22 @@ def test_every_module_imports_without_jax():
     assert n_modules == len(list(PORT.rglob("*.py"))) - 1  # minus __init__
 
 
+def test_the_scan_paths_import_without_jax():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import repro_torch.models.rwkv6, repro_torch.models.mamba2\n"
+            "import repro_torch.kernels.rwkv6_scan.ops\n"
+            "import repro_torch.kernels.mamba2_ssd.ops\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
