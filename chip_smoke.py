@@ -9,7 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. The card's name and power limit; TF32 off; the CUDA kernels built from
-   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel.
+   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel;
+   ``-Xptxas -v`` of each kernel (registers, shared memory, spills: the
+   tensor-core flash kernel must spill nothing) and the tensor-core flash
+   kernel's ``HGMMA`` instructions in ``cuobjdump -sass``.
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
@@ -27,13 +30,19 @@ and prints no result line):
    keep its state on the card, and agree with the same run on ``"ref"``
    (counters exact; a differing decision must be traced to a score within
    1e-5 of its threshold).
-5. The flash-attention kernel against its plain version on the card, at
-   the main path's shape (q ``(4, 32, 1024, 64)``, kv heads 4, causal) in
-   bf16 and float32 and at edge shapes (S = 1, 100, 2048; head dims 8, 16,
-   128; MHA, MQA; non-causal): within 2e-5 in float32 and 3e-2 in bf16,
-   the reference's gates.
-6. Its time, its plain version's and ``F.scaled_dot_product_attention``'s
-   (the library yardstick, never called by the port) beside the bound.
+5. The flash-attention kernels against their plain version on the card,
+   at the main path's shape (q ``(4, 32, 1024, 64)``, kv heads 4, causal)
+   in bf16 (tensor cores) and float32 (CUDA cores) and at edge shapes (S =
+   1, 100, 2048; head dims 8, 16, 128; MHA, MQA; non-causal); then bf16 on
+   the tensor cores at head dims 64 and 128, GQA groups 1, 4 and 8, S = 1,
+   64, 100, 1024 and 2048, causal and full, in the models' layout ((B, S,
+   H, D) seen as (B, H, S, D)), bitwise equal to the contiguous layout:
+   within 2e-5 in float32 and 3e-2 in bf16, the reference's gates.
+6. At the main shape: the bf16 tensor-core kernel's time, the float32
+   CUDA-core kernel's, their plain version's and
+   ``F.scaled_dot_product_attention``'s in each dtype (the library
+   yardstick, never called by the port), each beside its bound (bf16 at
+   989 TFLOP/s, float32 at 67) and in TFLOP/s.
 7. The EFM answer path at full width: TinyLlama-1.1B (22 layers, d_model
    2048) with seeded random bf16 weights and ``attn_backend="pallas"``
    prefills 4 prompts of 1024 seeded token ids (``jit_prefill``) and
@@ -84,8 +93,11 @@ and prints no result line):
    tokens and the serve state of the two backends agree within 1e-3.  The
    bf16 ``"pallas"`` prefill and decode are profiled as in phase 8.
 
-It then prints one JSON line ``{"kernels": [...]}``, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
+two rows: ``flash_attention_pallas``, the bf16 tensor-core instance of
+the main path, and ``flash_attention_pallas/cuda_core``, the float32
+instance, with the launches of phase 7's float32 prefill), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -115,7 +127,9 @@ FLOP_PER_PIXEL = 74
 FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
 
 RM_SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
-FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_wgmma.cu")
+FA_F32_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 SSD_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
 RWKV_SOURCE = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
@@ -128,6 +142,8 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/reproject_match/fused.py:121", RM_SOURCE),
     "flash_attention_pallas":
         ("src/repro/kernels/flash_attention/kernel.py:99", FA_SOURCE),
+    "flash_attention_pallas/cuda_core":
+        ("src/repro/kernels/flash_attention/kernel.py:99", FA_F32_SOURCE),
     "int8_matmul_pallas":
         ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
     "mamba2_ssd_pallas":
@@ -222,8 +238,37 @@ def phase_build(torch) -> None:
           f"{time.perf_counter() - t0:.1f} s")
     for path in paths:
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {path.name.rsplit('_', 1)[0]}: " + line.strip())
+            if any(w in line for w in ("entry function '", "registers",
+                                       "spill", "wgmma")):
+                line = line.strip().replace("ptxas info    : ", "")
+                print(f"    {path.name.rsplit('_', 1)[0]}: {line[:160]}")
+    check_tensor_core_build(paths[libs.index(fa_lib)])
+
+
+def check_tensor_core_build(path) -> None:
+    """The tensor-core flash kernel spills nothing (``-Xptxas -v``) and
+    runs wgmma: ``HGMMA`` in its SASS (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    log = path.with_suffix(".log").read_text()
+    blocks = log.split("Compiling entry function '")[1:]
+    wgmma = [b for b in blocks if "fa_wgmma_kernel" in b.split("'")[0]]
+    _need(len(wgmma) == 2, f"{len(wgmma)} tensor-core flash instances in "
+          f"the ptxas log, not 2")
+    for block in wgmma:
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
+        _need(spills and all(n == "0" for n in spills),
+              f"the tensor-core flash kernel spills: {block[:300]}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    hgmma = [line.split(";")[0].split("*/")[-1].strip()
+             for line in sass.splitlines() if "HGMMA" in line]
+    _need(len(hgmma) > 0, "no HGMMA in the flash library's SASS")
+    kinds = sorted(set(h.split()[0] for h in hgmma))
+    print(f"[1] flash_attention SASS: {len(hgmma)} HGMMA instructions "
+          f"({', '.join(kinds)}), e.g. {hgmma[0]!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -660,17 +705,39 @@ def phase_main_path(torch, device, n_frames=N_FRAMES):
 # ---------------------------------------------------------------------------
 
 
-def fa_inputs(torch, device, b, hq, hkv, s, d, dtype, seed):
+def fa_inputs(torch, device, b, hq, hkv, s, d, dtype, seed, bshd=False):
+    """q, k, v from a seed: (B, H, S, D) tensors, or with ``bshd`` the (B,
+    H, S, D) views of (B, S, H, D) tensors (the models' layout)."""
     g = torch.Generator(device=device).manual_seed(seed)
+    if bshd:
+        return [torch.randn(b, s, h, d, generator=g, device=device).to(
+            dtype).transpose(1, 2) for h in (hq, hkv, hkv)]
     return [torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
             for h in (hq, hkv, hkv)]
 
 
-def phase_flash(torch, device):
-    """Returns the largest |kernel - plain| at the main path's shape in
-    bf16 (the path's dtype)."""
+def fa_check(torch, label, q, k, v, causal):
+    """One launch against the plain version; returns max |kernel - plain|
+    and the output."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas, flash_attention_plain)
+
+    out = flash_attention_pallas(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    _need(out.dtype == q.dtype and out.shape == q.shape,
+          f"flash {label}: output {out.dtype} {tuple(out.shape)}")
+    _need(bool(torch.isfinite(out).all()), f"flash {label}: non-finite output")
+    err = float((out.float() - plain.float()).abs().max())
+    tol = FA_TOL[str(q.dtype).split(".")[1]]
+    _need(err <= tol, f"flash {label} {q.dtype}: kernel vs plain {err} > {tol}")
+    return err, out
+
+
+def phase_flash(torch, device):
+    """Returns the largest |kernel - plain| at the main path's shape of the
+    bf16 tensor-core instance (the path's) and of the float32 instance."""
+    from repro_torch.kernels.flash_attention.kernel import route
 
     main = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
     cases = [
@@ -685,39 +752,55 @@ def phase_flash(torch, device):
         ("non-causal", (2, 8, 4, 384, 64, False)),
         ("non-causal S=100 D=128", (1, 6, 2, 100, 128, False)),
     ]
-    main_err = None
+    errs = {}
     for i, (label, (b, hq, hkv, s, d, causal)) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = fa_inputs(torch, device, b, hq, hkv, s, d, dtype, i)
-            out = flash_attention_pallas(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            plain = flash_attention_plain(q, k, v, causal=causal)
-            _need(out.dtype == dtype and out.shape == q.shape,
-                  f"flash {label}: output {out.dtype} {tuple(out.shape)}")
-            _need(bool(torch.isfinite(out).all()),
-                  f"flash {label}: non-finite output")
-            err = float((out.float() - plain.float()).abs().max())
-            tol = FA_TOL[str(dtype).split(".")[1]]
-            _need(err <= tol, f"flash {label} {dtype}: kernel vs plain "
-                  f"{err} > {tol}")
-            if label == "main" and dtype == torch.bfloat16:
-                main_err = err
+            err, _ = fa_check(torch, label, q, k, v, causal)
+            name = str(dtype).split(".")[1]
+            if label == "main":
+                errs[name] = err
             print(f"[5] flash {label}: q {(b, hq, s, d)} kv heads {hkv} "
-                  f"causal={causal} {str(dtype).split('.')[1]}: max|err| "
-                  f"{err:.3g} (tol {tol})")
-    return main_err
+                  f"causal={causal} {name} ({route(dtype, d)}): max|err| "
+                  f"{err:.3g} (tol {FA_TOL[name]})")
+    # bf16 on the tensor cores in the models' layout, bitwise equal to the
+    # contiguous layout.
+    worst, n = 0.0, 0
+    for d in (64, 128):
+        for group in (1, 4, 8):
+            for s in (1, 64, 100, 1024, 2048):
+                for causal in (True, False):
+                    b, hq = (1 if s >= 1024 else 2), 8
+                    q, k, v = fa_inputs(torch, device, b, hq, hq // group, s,
+                                        d, torch.bfloat16, n, bshd=True)
+                    label = (f"bf16 D={d} group={group} S={s} "
+                             f"causal={causal} strided")
+                    err, out = fa_check(torch, label, q, k, v, causal)
+                    _, dense = fa_check(torch, label, q.contiguous(),
+                                        k.contiguous(), v.contiguous(),
+                                        causal)
+                    _need(torch.equal(out, dense), f"flash {label}: the "
+                          f"strided and contiguous layouts differ")
+                    worst, n = max(worst, err), n + 1
+    print(f"[5] flash bf16 tensor cores: {n} cases (D 64, 128; GQA groups 1,"
+          f" 4, 8; S 1, 64, 100, 1024, 2048; causal and full) in the models'"
+          f" layout, each bitwise equal to the contiguous layout: max|err| "
+          f"{worst:.3g} (tol {FA_TOL['bfloat16']})")
+    return {"flash_attention_pallas": errs["bfloat16"],
+            "flash_attention_pallas/cuda_core": errs["float32"]}
 
 
-def fa_bound(b, hq, hkv, s, d, causal, elem_bytes):
+def fa_bound(b, hq, hkv, s, d, causal, elem_bytes, flop_per_s):
     """Least time of one attention call: ``(ms, "bytes" | "operations",
     flop)``.  q, k, v read once, o written once; 2 FLOP per multiply-add
     of QK^T and of PV, over the key positions causal attention needs
-    (S (S + 1) / 2 pairs per head), at the bf16 tensor-core peak."""
+    (S (S + 1) / 2 pairs per head), at ``flop_per_s`` (the bf16
+    tensor-core peak, or float32's on the CUDA cores)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flop = 4 * b * hq * d * pairs
     nbytes = (2 * b * hq + 2 * b * hkv) * s * d * elem_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    t_ops = flop / flop_per_s * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", flop
     return t_ops, "operations", flop
@@ -729,29 +812,48 @@ def fa_bound(b, hq, hkv, s, d, causal, elem_bytes):
 
 
 def phase_flash_times(torch, device):
+    """At the main shape, per dtype: the kernel (bf16 on the tensor cores,
+    float32 on the CUDA cores), the plain version and
+    ``F.scaled_dot_product_attention`` (yardstick only), beside the bound
+    at the dtype's peak.  Returns the rows of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_pallas, flash_attention_plain)
+        flash_attention_pallas, flash_attention_plain, route)
 
     shape = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
-    q, k, v = fa_inputs(torch, device, *shape[:5], torch.bfloat16, 0)
-    ms = device_ms(torch, lambda: flash_attention_pallas(q, k, v),
-                   per_graph=10)
-    plain_ms = device_ms(torch, lambda: flash_attention_plain(q, k, v),
-                         per_graph=5)
-    library_ms = device_ms(
-        torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), per_graph=10)
-    bound_ms, bound_by, flop = fa_bound(*shape, 2)
-    print(f"[6] flash_attention_pallas: q {tuple(q.shape)} bf16, kv heads 4,"
-          f" causal: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-          f"us, scaled_dot_product_attention {library_ms * 1e3:.2f} us, "
-          f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {flop / 1e9:.2f} "
-          f"GFLOP at 989 TFLOP/s); kernel at "
-          f"{flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    rows = {}
+    for dtype, name, peak, per in (
+            (torch.bfloat16, "flash_attention_pallas", BF16_FLOP_PER_S, 20),
+            (torch.float32, "flash_attention_pallas/cuda_core",
+             FP32_FLOP_PER_S, 5)):
+        q, k, v = fa_inputs(torch, device, *shape[:5], dtype, 0)
+        ms = device_ms(torch, lambda: flash_attention_pallas(q, k, v),
+                       per_graph=per)
+        plain_ms = device_ms(torch, lambda: flash_attention_plain(q, k, v),
+                             per_graph=5)
+        library_ms = device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), per_graph=per)
+        # the path's layout: q, k contiguous after RoPE, v a (B, S, H, D)
+        # view
+        vs = v.transpose(1, 2).contiguous().transpose(1, 2)
+        strided_ms = device_ms(torch, lambda: flash_attention_pallas(q, k, vs),
+                               per_graph=per)
+        bound_ms, bound_by, flop = fa_bound(*shape, q.element_size(), peak)
+        dt = str(dtype).split(".")[1]
+        print(f"[6] {name}: q {tuple(q.shape)} {dt}, kv heads 4, causal, "
+              f"{route(dtype, 64)}: kernel {ms * 1e3:.2f} us "
+              f"({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s; v strided "
+              f"{strided_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+              f"scaled_dot_product_attention {library_ms * 1e3:.2f} us "
+              f"({flop / (library_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}: {flop / 1e9:.2f} GFLOP "
+              f"at {peak / 1e12:.0f} TFLOP/s; kernel at "
+              f"{bound_ms / ms:.1%} of it)")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -869,7 +971,8 @@ def trace_token_flips(kern, ref, label, tol=BF16_LOGIT_TOL):
 
 def phase_efm(torch, device, wrappers):
     """The EFM runs; returns the flash launches of the main path's run
-    (bf16, ``"pallas"``)."""
+    (bf16, ``"pallas"``: the tensor-core instance) and of the float32
+    ``"pallas"`` run (the CUDA-core instance)."""
     from repro_torch.configs import get_config
 
     n_layers = get_config(EFM_ARCH).n_layers
@@ -905,7 +1008,10 @@ def phase_efm(torch, device, wrappers):
                   f"{err:.3g} (tol {BF16_LOGIT_TOL}); greedy tokens "
                   f"{'equal' if same else f'{n_diff} differ'}"
                   + "".join(f"; {n}" for n in notes))
-    return runs["bfloat16", "pallas"]["launches"]["flash_attention_pallas"]
+    return {"flash_attention_pallas": runs["bfloat16", "pallas"][
+                "launches"]["flash_attention_pallas"],
+            "flash_attention_pallas/cuda_core": runs["float32", "pallas"][
+                "launches"]["flash_attention_pallas"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1671,10 +1777,9 @@ def main() -> int:
     errs = phase_kernels(torch, device)
     times = phase_times(torch, device)
     launches = phase_main_path(torch, device)
-    errs["flash_attention_pallas"] = phase_flash(torch, device)
-    times["flash_attention_pallas"] = phase_flash_times(torch, device)
-    launches["flash_attention_pallas"] = phase_efm(torch, device,
-                                                   kernel_wrappers())
+    errs.update(phase_flash(torch, device))
+    times.update(phase_flash_times(torch, device))
+    launches.update(phase_efm(torch, device, kernel_wrappers()))
     phase_efm_profile(torch, device)
     operands, errs["int8_matmul_pallas"] = phase_int8(torch, device)
     times["int8_matmul_pallas"] = phase_int8_times(torch, device, operands)

@@ -1,15 +1,28 @@
-"""Flash attention on the card: the wrapper of the hand-written CUDA kernel.
+"""Flash attention on the card: the wrapper of the hand-written CUDA kernels.
 
 ``flash_attention_pallas`` keeps the name and the op contract of the JAX
 package's Pallas kernel (``repro/kernels/flash_attention/kernel.py``):
 q ``(B, Hq, S, D)``, k / v ``(B, Hkv, S, D)``, query head ``h`` reads kv
-head ``h // (Hq / Hkv)``, f32 inside, output in ``q.dtype``.  It launches
-``csrc/flash_attention.cu``, whose header says what bounds the kernel.
+head ``h // (Hq / Hkv)``, f32 inside, output in ``q.dtype``.  Two
+instances compute it; :func:`route` picks one from the dtype and head dim,
+and a refused launch raises (nothing retries on the other):
+
+* ``"tensor_core"``: bf16 at head dims 64 and 128,
+  ``csrc/flash_attention_wgmma.cu`` (wgmma products, TMA loads);
+* ``"cuda_core"``: float32 at every head dim of :data:`HEAD_DIMS` and bf16
+  at 8, 16 and 32, ``csrc/flash_attention.cu`` (f32 FMAs).
+
+Each source's header says what bounds its kernel.  Both read q, k and v
+through their strides (the last dim contiguous; for the tensor cores the
+other strides and the base 16-byte aligned, as TMA needs), so the models'
+``(B, S, H, D)`` projections seen as ``(B, H, S, D)`` go in uncopied; the
+output is a ``(B, S, Hq, D)`` buffer returned as its ``(B, Hq, S, D)``
+view, so merging the heads back is a reshape, not a copy.
 
 For tensors on the CPU the wrapper takes :func:`flash_attention_plain`,
 the plain PyTorch version of the same contract; for tensors on a CUDA
-device it launches the kernel or raises.  ``flash_attention_pallas
-.launches`` counts its kernel launches.
+device it launches a kernel or raises.  ``flash_attention_pallas
+.launches`` counts the launches of both instances.
 """
 
 from __future__ import annotations
@@ -21,18 +34,54 @@ from typing import Optional
 import torch
 from torch import Tensor
 
-from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check
+from repro_torch.kernels._build import (FLOAT, I64, INT, PTR, CudaLibrary,
+                                        check)
 
 LIBRARY = CudaLibrary(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc",
-    # q k v o, b hq hkv s d causal, scale, dtype, stream
-    {"fa_forward_launch": (PTR,) * 4 + (INT,) * 6 + (FLOAT, INT, PTR)},
+    # q k v o, b hq hkv s d causal, scale, [dtype,] the (b, h, s) strides
+    # of q k v o, stream
+    {"fa_cuda_core_launch": (PTR,) * 4 + (INT,) * 6 + (FLOAT, INT)
+     + (I64,) * 12 + (PTR,),
+     "fa_tensor_core_launch": (PTR,) * 4 + (INT,) * 6 + (FLOAT,)
+     + (I64,) * 12 + (PTR,)},
 )
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims some instance takes
+TENSOR_CORE_HEAD_DIMS = (64, 128)  # bf16 on the tensor cores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
+_TMA_ALIGN = 16  # bytes: TMA's rule for the base and every outer stride
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel instance that takes ``dtype`` at head dim ``d`` on the
+    card: ``"tensor_core"`` or ``"cuda_core"``; raises for neither.
+
+    bf16 at 64 and 128 goes to the tensor cores.  Float32 stays on the
+    CUDA cores: TF32 products round their inputs to 10 bits (about 5e-4
+    relative), far past the reference's float32 gate of 2e-5.
+    """
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the kernels' {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def kernel_strides(t: Tensor) -> tuple:
+    """The (b, h, s) element strides the kernels read ``t`` through.  A
+    dim of size 1 is never stepped over, so its stride is whatever
+    PyTorch left there; it becomes the contiguous one, which TMA's
+    alignment rule always accepts."""
+    b, h, s, d = t.shape
+    contiguous = (h * s * d, s * d, d)
+    return tuple(c if n == 1 else st
+                 for n, st, c in zip((b, h, s), t.stride()[:3], contiguous))
 
 
 def check_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -70,11 +119,19 @@ def check_inputs(q: Tensor, k: Tensor, v: Tensor) -> None:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda, not {device}")
     if device.type == "cuda":
-        if d not in HEAD_DIMS:
-            raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+        tensor_core = route(q.dtype, d) == "tensor_core"
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous for the kernel")
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name} must be contiguous in its last dim "
+                                 f"for the kernel; strides {t.stride()}")
+            if tensor_core and (
+                    t.data_ptr() % _TMA_ALIGN
+                    or any(st <= 0 or st * t.element_size() % _TMA_ALIGN
+                           for st in kernel_strides(t))):
+                raise ValueError(
+                    f"{name} needs a {_TMA_ALIGN}-byte aligned base and "
+                    f"positive {_TMA_ALIGN}-byte aligned strides for the "
+                    f"tensor-core kernel's TMA loads; strides {t.stride()}")
 
 
 def flash_attention_plain(
@@ -107,7 +164,8 @@ def flash_attention_pallas(
 
     Replaces ``repro/kernels/flash_attention/kernel.py ::
     flash_attention_pallas``; the Pallas block sizes have no counterpart
-    (the kernel tiles for the card itself).
+    (the kernels tile for the card themselves).  On the card the result is
+    the ``(B, Hq, S, D)`` view of a ``(B, S, Hq, D)`` buffer.
     """
     check_inputs(q, k, v)
     if scale is None:
@@ -115,13 +173,20 @@ def flash_attention_pallas(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     b, hq, s, d = q.shape
-    out = torch.empty_like(q)
-    err = LIBRARY.library().fa_forward_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, k.shape[1], s, d, int(causal), float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(err, "fa_forward_launch")
+    out = torch.empty((b, s, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, k.shape[1], s, d, int(causal), float(scale))
+    strides = [n for t in (q, k, v, out) for n in kernel_strides(t)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route(q.dtype, d) == "tensor_core":
+        entry = "fa_tensor_core_launch"
+        err = LIBRARY.library().fa_tensor_core_launch(*args, *strides, stream)
+    else:
+        entry = "fa_cuda_core_launch"
+        err = LIBRARY.library().fa_cuda_core_launch(
+            *args, _DTYPE_CODES[q.dtype], *strides, stream)
+    check(err, entry)
     flash_attention_pallas.launches += 1
     return out
 

@@ -185,6 +185,9 @@ def _split_heads(x: Tensor, n_heads: int) -> Tensor:
 
 
 def _merge_heads(x: Tensor) -> Tensor:
+    """(B, H, S, D) -> (B, S, H * D): a view when ``x`` is the (B, H, S, D)
+    view of a (B, S, H, D) buffer (the flash kernels' output), a copy
+    otherwise."""
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
 
@@ -241,9 +244,10 @@ def attention_full(
 
     group = n_heads // n_kv_heads
     if backend == "pallas":
-        o = flash_attention_pallas(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal
-        )
+        # The kernels read these (B, S, H, D)-backed views through their
+        # strides and return a (B, S, Hq, D)-backed view, which
+        # _merge_heads reshapes without a copy.
+        o = flash_attention_pallas(q, k, v, causal=causal)
     elif backend == "chunked":
         o = attention_chunked(
             q, _repeat_kv(k, group), _repeat_kv(v, group), causal=causal,

@@ -132,12 +132,115 @@ def test_flash_kernel_matches_its_plain_version(device, b, hq, hkv, s, d,
 
 
 def test_flash_wrapper_rejects_a_non_contiguous_tensor(device):
+    """Only the last dim must be contiguous: a tensor strided there is
+    refused (transposed views of the other dims are read as they are)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas)
 
-    q = torch.zeros(1, 64, 4, 64, device=device).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 4, 64, 128, dtype=dtype, device=device)[..., ::2]
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_attention_pallas(q, q, q)
+
+
+# bf16 on the tensor cores: head dims 64 and 128, GQA groups 1, 4 and 8,
+# S = 1, 64, 100, 1024 and 2048, causal and full.
+TENSOR_CORE_CASES = [
+    (2, 8, 8, 1, 64, True), (2, 8, 2, 64, 64, True),
+    (2, 8, 1, 100, 64, True), (4, 32, 4, 1024, 64, True),
+    (1, 16, 2, 2048, 64, True), (2, 8, 8, 100, 64, False),
+    (2, 8, 2, 1024, 64, False), (2, 8, 8, 1, 128, False),
+    (2, 8, 1, 64, 128, True), (2, 8, 2, 100, 128, True),
+    (2, 16, 2, 1024, 128, True), (1, 8, 1, 2048, 128, False),
+]
+
+
+def _bshd(device, b, h, s, d, dtype, seed):
+    """A (B, H, S, D) view of a (B, S, H, D) buffer: the models' layout."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(b, s, h, d, generator=g, device=device).to(
+        dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", TENSOR_CORE_CASES, ids=str)
+def test_flash_tensor_core_matches_its_plain_version(device, b, hq, hkv, s,
+                                                     d, causal):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain, route)
+
+    assert route(torch.bfloat16, d) == "tensor_core"
+    q, k, v = [_bshd(device, b, h, s, d, torch.bfloat16, i + s + d)
+               for i, h in enumerate((hq, hkv, hkv))]
+    out = flash_attention_pallas(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    assert float((out.float() - plain.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 16)])
+def test_flash_strided_and_contiguous_inputs_agree_bitwise(device, dtype, d):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+
+    q, k, v = [_bshd(device, 2, h, 256, d, dtype, i)
+               for i, h in enumerate((8, 2, 2))]
+    assert not q.is_contiguous()
+    strided = flash_attention_pallas(q, k, v)
+    contiguous = flash_attention_pallas(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+    assert torch.equal(strided, contiguous)
+
+
+def test_flash_output_is_a_view_of_a_bshd_buffer(device):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 32)):
+        q = _bshd(device, 2, 4, 128, d, dtype, 0)
+        out = flash_attention_pallas(q, q[:, :2], q[:, :2])
+        assert out.shape == (2, 4, 128, d)
+        assert out.transpose(1, 2).is_contiguous()
+        merged = out.transpose(1, 2).reshape(2, 128, 4 * d)
+        assert merged.data_ptr() == out.data_ptr()
+
+
+@pytest.mark.parametrize("dtype,d,expected", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_flash_each_route_launches(device, dtype, d, expected):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain, route)
+
+    assert route(dtype, d) == expected
+    q = _bshd(device, 1, 4, 128, d, dtype, d)
+    before = flash_attention_pallas.launches
+    out = flash_attention_pallas(q, q[:, :1], q[:, :1])
+    torch.cuda.synchronize()
+    assert flash_attention_pallas.launches == before + 1
+    plain = flash_attention_plain(q, q[:, :1], q[:, :1])
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((out.float() - plain.float()).abs().max()) <= tol
+
+
+def test_flash_tensor_core_rejects_unaligned_strides(device):
+    """TMA needs 16-byte aligned strides: a row stride of 68 bf16 values
+    (136 bytes) is refused before any launch."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+
+    q = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16,
+                    device=device)[..., :64]
+    before = flash_attention_pallas.launches
+    with pytest.raises(ValueError, match="16-byte"):
         flash_attention_pallas(q, q, q)
+    assert flash_attention_pallas.launches == before
 
 
 # ---------------------------------------------------------------------------

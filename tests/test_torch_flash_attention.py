@@ -21,8 +21,12 @@ from repro.kernels.flash_attention.kernel import (
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.kernel import (
+    HEAD_DIMS,
+    TENSOR_CORE_HEAD_DIMS,
     flash_attention_pallas,
     flash_attention_plain,
+    kernel_strides,
+    route,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -122,3 +126,94 @@ def test_dispatcher_rejects_an_unknown_backend():
     q = torch.zeros(1, 2, 8, 8)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.attention(q, q, q, backend="bogus")
+
+
+# ---------------------------------------------------------------------------
+# The card's two instances and the strided layout, as far as the CPU sees
+# them: the routing function, the strides handed to the kernels, and the
+# wrapper on the models' (B, S, H, D)-backed views.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_picks_the_instance_for_every_dtype_and_head_dim(dtype, d):
+    expected = ("tensor_core" if dtype == torch.bfloat16
+                and d in TENSOR_CORE_HEAD_DIMS else "cuda_core")
+    assert route(dtype, d) == expected
+
+
+@pytest.mark.parametrize("dtype,d,error", [(torch.float16, 64, TypeError),
+                                           (torch.bfloat16, 160, ValueError),
+                                           (torch.float32, 48, ValueError)])
+def test_route_refuses_what_no_instance_takes(dtype, d, error):
+    with pytest.raises(error):
+        route(dtype, d)
+
+
+def _bshd(x, dtype=torch.float32):
+    """numpy (B, H, S, D) -> the same values as the (B, H, S, D) view of a
+    (B, S, H, D) tensor: the layout the models hand the kernel."""
+    return to_torch(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).to(
+        dtype).transpose(1, 2)
+
+
+def test_kernel_strides_of_the_models_layout():
+    q = torch.zeros(2, 100, 8, 64).transpose(1, 2)  # (B, H, S, D) view
+    assert kernel_strides(q) == (100 * 8 * 64, 64, 8 * 64)
+    assert kernel_strides(torch.zeros(2, 8, 100, 64)) == (51200, 6400, 64)
+    # a dim of size 1 takes the contiguous stride, whatever PyTorch left
+    one = torch.zeros(1, 1, 8, 64).transpose(1, 2)  # (1, 8, 1, 64)
+    assert kernel_strides(one) == (8 * 64, 64, 64)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
+    (2, 8, 2, 256, 64, True), (1, 4, 4, 100, 128, False),
+    (2, 6, 3, 64, 16, True), (1, 2, 1, 1, 64, True)])
+def test_wrapper_on_the_models_strided_views(b, hq, hkv, s, d, causal):
+    """On the CPU the wrapper takes its plain version; the strided views
+    give the contiguous call's values, and the JAX kernel's."""
+    q, k, v = _qkv(s + d, b, hq, hkv, s, d)
+    tq, tk, tv = map(_bshd, (q, k, v))
+    assert s == 1 or not tq.is_contiguous()  # S = 1: a view that is both
+    strided = flash_attention_pallas(tq, tk, tv, causal=causal)
+    contiguous = flash_attention_pallas(*map(to_torch, (q, k, v)),
+                                        causal=causal)
+    np.testing.assert_array_equal(to_numpy(strided), to_numpy(contiguous))
+    pal = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                               interpret=True))
+    np.testing.assert_allclose(to_numpy(strided), pal, atol=F32_TOL)
+
+
+def test_wrapper_on_bf16_strided_views_matches_jax():
+    q, k, v = _qkv(11, 1, 8, 2, 128, 64)
+    bf = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    pal = np.asarray(jax_flash(*bf, interpret=True), dtype=np.float32)
+    views = [_bshd(np.asarray(x.astype(jnp.float32)), torch.bfloat16)
+             for x in bf]
+    out = flash_attention_pallas(*views)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_numpy(out.float()), pal, atol=BF16_TOL)
+
+
+def test_attention_full_hands_the_kernel_uncopied_views(monkeypatch):
+    """``backend="pallas"`` passes the projections' (B, S, H, D)-backed
+    views as they are (no ``.contiguous()`` copy before the launch)."""
+    from repro_torch.models import layers
+
+    seen = {}
+
+    def spy(q, k, v, *, causal):
+        seen.update(q=q, k=k, v=v)
+        return flash_attention_plain(q, k, v, causal=causal)
+
+    monkeypatch.setattr(layers, "flash_attention_pallas", spy)
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_attention(gen, 64, 4, 2, 16)
+    x = torch.randn(2, 32, 64, generator=gen)
+    out = layers.attention_full(p, x, 4, 2, backend="pallas")
+    ref = layers.attention_full(p, x, 4, 2, backend="ref")
+    v = seen["v"]
+    assert v.shape == (2, 2, 32, 16) and not v.is_contiguous()
+    assert v.transpose(1, 2).is_contiguous()  # the projection's own memory
+    np.testing.assert_allclose(to_numpy(out), to_numpy(ref), atol=1e-5)
