@@ -11,8 +11,10 @@ and prints no result line):
 1. The card's name and power limit; TF32 off; the CUDA kernels built from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel;
    ``-Xptxas -v`` of each kernel (registers, shared memory, spills: the
-   tensor-core flash kernel must spill nothing) and the tensor-core flash
-   kernel's ``HGMMA`` instructions in ``cuobjdump -sass``.
+   tensor-core flash kernel and the SSD kernels must spill nothing) and
+   the tensor-core instructions in ``cuobjdump -sass``: ``HGMMA`` on bf16
+   (flash attention), ``IMMA`` on s8 (the int8 product and the fused
+   int8 convolution), ``HMMA`` on TF32 (the SSD scan).
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
@@ -54,20 +56,28 @@ and prints no result line):
 8. Where phase 7's bf16 ``"pallas"`` time goes: prefill and decode under
    ``torch.profiler`` (device busy time, idle share, launches, time by
    kernel).
-9. The int8 matmul kernel against its plain version on the card, exactly:
-   at the reference test's shapes, the all--128 case at K = 512, and the
-   eight products the int8 depth network hands it for one frame (its
-   operands recorded from a ``forward_int8`` call).
-10. Their times (CUDA graph replay between CUDA events) beside the plain
-   version's, ``torch._int_mm``'s on the shapes padded to what it takes
-   (the library yardstick, never called by the port) and the bound.
+9. The int8 product kernel against its plain version on the card,
+   exactly: at the reference test's shapes, the all--128 case at K = 512,
+   and the eight products the int8 depth network hands it for one frame;
+   then the fused int8 convolution (``qconv_int8_pallas``) bitwise equal
+   to its plain version on the eight layers' operands of that frame (both
+   recorded from a ``forward_int8`` call) and at edge cases (odd H and W
+   at stride 2, K = 27, N = 1 without ReLU, M = 75, K = 300, an all-zero
+   input, inputs half a step between two int8 values).
+10. Their times (CUDA graph replay between CUDA events): the product
+   kernel beside its plain version, ``torch._int_mm``'s on the shapes
+   padded to what it takes (the library yardstick, never called by the
+   port) and the bound; the 8 fused launches beside their plain version,
+   the eager chains they replace (the plain composition around the
+   product kernel) and the bound.
 11. EPIC's deployment path: ``EPICConfig()`` with phase 4's depth network
    quantised to int8 on a ``depth_training_batch`` and the HIR network,
-   96 frames on ``"fused"``: with the kernel (8 launches per processed
-   frame), then with the depth network's ``int8_matmul`` on ``"ref"``
-   (the plain version, exact); counters and state bitwise equal; frames/s
-   and the depth stage's device time per processed frame beside the fp32
-   network's.
+   96 frames on ``"fused"``: with the fused launch (``matmul_backend=
+   "pallas"``, the main path: 8 launches per processed frame, no launch
+   of the product kernel) and with the plain version (``"ref"``, exact);
+   counters and state of the kernel run bitwise equal to the plain run's;
+   frames/s, and the depth stage's device time and device launches per
+   processed frame beside the fp32 network's.
 12. The four baselines (``fv``, ``sd``, ``td``, ``gc``) and EPIC (phase
    11's int8 run) on the same stream on the card: retained bytes, token
    stream shape, and the energy model's Figure 6 energy and memory ratios
@@ -80,9 +90,14 @@ and prints no result line):
    layout the models hand over ((B, T, H, .) seen as (B, H, T, .), read
    through its strides), and on a strong-decay draw (w_log = -exp(2 z)):
    within 2e-4, the reference's gate.
+   The SSD kernel returns y as the (B, H, T, P) view of a (B, T, H, P)
+   buffer.
 14. Their times at the full-width shapes in the models' layout (CUDA graph
    replay between CUDA events) beside the plain version's and the bound
-   (the products the chunked form needs, over the lower triangle).
+   (the products the chunked form needs, over the lower triangle, at the
+   float32 CUDA-core peak; for the SSD kernel also the function's floor
+   on the tensor cores, and the bytes its design moves).  ``scripts/time_int8_ssd.py`` times a parent tree's SSD
+   kernel and int8 depth stage beside these in one call.
 15. The RWKV6 and hybrid answer paths at full width: RWKV6-3B (32 layers,
    d_model 2560) and Zamba2-2.7B (54 Mamba-2 layers, d_model 2560, 9
    shared-attention invocations), seeded random bf16 weights, prefill 4
@@ -91,13 +106,18 @@ and prints no result line):
    on ``"chunked"``, then 8 greedy tokens (``greedy_decode_loop``); the
    same in float32 at a cut depth (8 and 12 layers), where logits, greedy
    tokens and the serve state of the two backends agree within 1e-3.  The
-   bf16 ``"pallas"`` prefill and decode are profiled as in phase 8.
+   bf16 ``"pallas"`` prefill and decode are profiled as in phase 8, with
+   the scan kernel's share of the device time.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 two rows: ``flash_attention_pallas``, the bf16 tensor-core instance of
 the main path, and ``flash_attention_pallas/cuda_core``, the float32
-instance, with the launches of phase 7's float32 prefill), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+instance, with the launches of phase 7's float32 prefill; the int8 kernel
+two: ``int8_matmul_pallas/qconv``, the fused launch of the int8 main path,
+and ``int8_matmul_pallas``, the op's product kernel, held and timed in
+phases 9-10 at the main path's product shapes, whose work the fused launch
+does on the main path: 0 launches there), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -146,6 +166,8 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/flash_attention/kernel.py:99", FA_F32_SOURCE),
     "int8_matmul_pallas":
         ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
+    "int8_matmul_pallas/qconv":
+        ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
     "mamba2_ssd_pallas":
         ("src/repro/kernels/mamba2_ssd/kernel.py:79", SSD_SOURCE),
     "rwkv6_scan_pallas":
@@ -166,6 +188,7 @@ F32_LOGIT_TOL = 1e-3
 # from two candidates within this margin in both runs' logits.
 BF16_LOGIT_TOL = 0.5
 INT8_OP_PER_S = 1979e12  # tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 # int8 matmul: the reference test's shapes (tests/test_kernels.py:136-139)
 # and the products of the int8 depth network at its 64x64 input, per
 # processed frame: (layer, M, K, N).
@@ -242,33 +265,44 @@ def phase_build(torch) -> None:
                                        "spill", "wgmma")):
                 line = line.strip().replace("ptxas info    : ", "")
                 print(f"    {path.name.rsplit('_', 1)[0]}: {line[:160]}")
-    check_tensor_core_build(paths[libs.index(fa_lib)])
+    for lib, kernel, count, pattern in (
+            (fa_lib, "fa_wgmma_kernel", 2, r"HGMMA\.[\w.]*BF16"),
+            (i8_lib, None, 0, r"IG?MMA\.[\w.]*S8"),
+            (ssd_lib, "ssd_", 6, r"HG?MMA\.[\w.]*TF32")):
+        check_tensor_core_build(paths[libs.index(lib)], kernel, count,
+                                pattern)
 
 
-def check_tensor_core_build(path) -> None:
-    """The tensor-core flash kernel spills nothing (``-Xptxas -v``) and
-    runs wgmma: ``HGMMA`` in its SASS (``cuobjdump -sass``)."""
+def check_tensor_core_build(path, kernel, count, pattern) -> None:
+    """The ``count`` kernels whose name holds ``kernel`` (none if None)
+    spill nothing (``-Xptxas -v``), and the library runs its tensor-core
+    instructions: ``pattern`` in its SASS (``cuobjdump -sass``): ``HGMMA``
+    on bf16 for flash attention (wgmma), ``IMMA`` on s8 for the int8
+    kernels, ``HMMA`` on TF32 for the SSD scan (mma.sync)."""
     import re
     import shutil
 
-    log = path.with_suffix(".log").read_text()
-    blocks = log.split("Compiling entry function '")[1:]
-    wgmma = [b for b in blocks if "fa_wgmma_kernel" in b.split("'")[0]]
-    _need(len(wgmma) == 2, f"{len(wgmma)} tensor-core flash instances in "
-          f"the ptxas log, not 2")
-    for block in wgmma:
-        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
-        _need(spills and all(n == "0" for n in spills),
-              f"the tensor-core flash kernel spills: {block[:300]}")
+    name = path.name.rsplit("_", 1)[0]
+    if kernel is not None:
+        log = path.with_suffix(".log").read_text()
+        blocks = [b for b in log.split("Compiling entry function '")[1:]
+                  if kernel in b.split("'")[0]]
+        _need(len(blocks) == count, f"{len(blocks)} {kernel} kernels in "
+              f"the ptxas log of {name}, not {count}")
+        for block in blocks:
+            spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
+            _need(spills and all(n == "0" for n in spills),
+                  f"a {kernel} kernel spills: {block[:300]}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
-    hgmma = [line.split(";")[0].split("*/")[-1].strip()
-             for line in sass.splitlines() if "HGMMA" in line]
-    _need(len(hgmma) > 0, "no HGMMA in the flash library's SASS")
-    kinds = sorted(set(h.split()[0] for h in hgmma))
-    print(f"[1] flash_attention SASS: {len(hgmma)} HGMMA instructions "
-          f"({', '.join(kinds)}), e.g. {hgmma[0]!r}")
+    found = [line.split(";")[0].split("*/")[-1].strip()
+             for line in sass.splitlines() if re.search(pattern, line)]
+    _need(len(found) > 0, f"no {pattern} in the SASS of {name}")
+    kinds = sorted(set(re.search(pattern, f).group(0) for f in found))
+    spilled = "" if kernel is None else f", {count} {kernel}* kernels, 0 spills"
+    print(f"[1] {name} SASS: {len(found)} tensor-core instructions "
+          f"({', '.join(kinds)}), e.g. {found[0]!r}{spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +483,21 @@ def device_ms(torch, fn, per_graph=50, replays=20):
     return start.elapsed_time(end) / (per_graph * replays)
 
 
+def device_profile(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: ``(device busy us, device
+    launches, the device rows of key_averages())``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows),
+            sum(e.count for e in rows), rows)
+
+
 def bound(args, fused: bool):
     """Least time on the card: ``(ms, "bytes" | "operations")``."""
     rgb, depth, origin, t_rel, frame = args
@@ -605,6 +654,7 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas)
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
     from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
     from repro_torch.kernels.reproject_match import fused, kernel
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
@@ -615,6 +665,7 @@ def kernel_wrappers():
         "reproject_match_fused": fused.reproject_match_fused,
         "flash_attention_pallas": flash_attention_pallas,
         "int8_matmul_pallas": int8_matmul_pallas,
+        "int8_matmul_pallas/qconv": qconv_int8_pallas,
         "mamba2_ssd_pallas": mamba2_ssd_pallas,
         "rwkv6_scan_pallas": rwkv6_scan_pallas,
     }
@@ -1055,16 +1106,14 @@ def phase_efm_profile(torch, device):
     torch.cuda.empty_cache()
 
 
-def profile_steps(torch, label, runs):
+def profile_steps(torch, label, runs, focus=None):
     """For each ``(name, fn, per, unit)``: a warm-up, a timed run (host
     clock, no profiler) and a run under ``torch.profiler``; prints wall
     time, device busy time (the sum of the device-side events) and the
     idle share it leaves of the unprofiled wall time, device launches, and
-    the device time by kernel, each per ``unit`` (``per`` of them a run).
+    the device time by kernel, each per ``unit`` (``per`` of them a run),
+    and the share of the kernels whose name holds ``focus``.
     """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name, fn, per, unit in runs:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -1072,57 +1121,105 @@ def profile_steps(torch, label, runs):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in rows)
+        busy_us, launches, rows = device_profile(torch, fn)
         _need(busy_us > 0, f"profile of the {name}: no device time")
         print(f"{label} {name}: wall {wall_us / per:.1f} "
               f"us/{unit}, device busy {busy_us / per:.1f} us/{unit}, idle "
               f"share {1 - busy_us / wall_us:.3f}, device launches "
-              f"{sum(e.count for e in rows) / per:.1f}/{unit}")
+              f"{launches / per:.1f}/{unit}")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / per:10.1f} us/{unit} "
                   f"{e.self_device_time_total / busy_us:6.1%} "
                   f"{e.count:6d} x  {e.key[:70]}")
+        if focus is not None:
+            mine = [e for e in rows if focus in e.key]
+            us = sum(e.self_device_time_total for e in mine)
+            print(f"{label} {name}: kernels named *{focus}*: {us / per:.1f} "
+                  f"us/{unit} ({us / busy_us:.1%} of device busy), "
+                  f"{sum(e.count for e in mine) / per:.1f} launches/{unit}")
 
 
 # ---------------------------------------------------------------------------
-# Phases 9-10: the int8 matmul kernel against its plain version; times.
+# Phases 9-10: the int8 kernels against their plain versions; times.
 # ---------------------------------------------------------------------------
 
 
 def depth_operands(torch, q, rgb64):
-    """The ``(A, B)`` pairs one ``forward_int8`` hands the int8 matmul op,
-    recorded by wrapping the op for that call."""
+    """What one ``forward_int8`` on ``"ref"`` hands its 8 dense and
+    pointwise layers, recorded by wrapping ``int8_ops.qconv_int8``: the
+    ``(args, kwargs)`` of each layer, and the ``(A, B)`` of the int8
+    product under each (its quantised im2col rows and its weights)."""
     from repro_torch.core import depth as depth_mod
+    from repro_torch.kernels.int8_matmul import qconv as qc
 
-    ops, seen = depth_mod.int8_ops, []
-    inner = ops.int8_matmul
+    ops, convs = depth_mod.int8_ops, []
+    inner = ops.qconv_int8
 
-    def record(a, b, *, backend="ref"):
-        seen.append((a.clone(), b.clone()))
-        return inner(a, b, backend=backend)
+    def record(x, xscale, qw, wscale, b, *, stride=1, relu=True,
+               backend="ref"):
+        convs.append(((x.clone(), xscale.clone(), qw, wscale, b),
+                      dict(stride=stride, relu=relu)))
+        return inner(x, xscale, qw, wscale, b, stride=stride, relu=relu,
+                     backend=backend)
 
-    ops.int8_matmul = record
+    ops.qconv_int8 = record
+    backend = q.matmul_backend
     try:
+        q.matmul_backend = "ref"
         depth_mod.forward_int8(q, rgb64)
     finally:
-        ops.int8_matmul = inner
-    got = [(a.shape[0], a.shape[1], b.shape[1]) for a, b in seen]
+        ops.qconv_int8 = inner
+        q.matmul_backend = backend
+    products = []
+    for (x, xscale, qw, _, _), kw in convs:
+        qx, _ = qc.quantize_activation(x, xscale)
+        cols, _ = qc.im2col(qx, qc.kernel_size(x, qw), kw["stride"])
+        products.append((cols.contiguous(), qw))
+    got = [(a.shape[0], a.shape[1], b.shape[1]) for a, b in products]
     _need(got == [g[1:] for g in DEPTH_GEMMS],
           f"int8 depth products {got}, not {DEPTH_GEMMS}")
-    return seen
+    return products, convs
+
+
+def qconv_edge_cases(torch, device):
+    """``(label, args, kwargs)`` of the fused launch at edge cases: odd H
+    and W at stride 2, K = 27, N = 1 without ReLU, M = 75, K = 300 (two
+    staged tiles), an all-zero input (the scale clamped to 1e-8) and
+    inputs half a step between two int8 values (rounded to even)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 18)
+    cases = []
+    for label, shape, k, cout, stride, relu in (
+            ("odd H, W, stride 2", (2, 33, 31, 8), 3, 16, 2, True),
+            ("K=27, stride 2", (1, 15, 17, 3), 3, 5, 2, True),
+            ("N=1, no ReLU", (1, 12, 10, 16), 3, 1, 1, False),
+            ("M=75", (3, 5, 5, 12), 1, 70, 1, True),
+            ("K=300", (1, 9, 7, 300), 1, 9, 1, True),
+            ("all zero", (1, 6, 6, 8), 3, 4, 2, True),
+            ("half steps", (1, 10, 13, 4), 3, 6, 1, True)):
+        x = 2 * torch.randn(shape, generator=g, device=device)
+        xscale = x.abs().amax()
+        if label == "all zero":
+            x.zero_()
+            xscale = xscale * 0
+        elif label == "half steps":  # xscale 127: a step of exactly 1.0
+            x = torch.round(x * 40) + 0.5
+            xscale = torch.tensor(127.0, device=device)
+        qw = torch.randint(-127, 128, (k * k * shape[-1], cout), generator=g,
+                           device=device, dtype=torch.int8)
+        wscale = 1e-3 + 2e-2 * torch.rand(cout, generator=g, device=device)
+        b = torch.randn(cout, generator=g, device=device)
+        cases.append((label, (x, xscale, qw, wscale, b),
+                      dict(stride=stride, relu=relu)))
+    return cases
 
 
 def phase_int8(torch, device):
     """Returns the depth network's operands for one frame and the largest
-    |kernel - plain|."""
+    |kernel - plain| of the product kernel and of the fused launch."""
     from repro_torch.core import depth as depth_mod
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.qconv import (qconv_int8_pallas,
+                                                       qconv_int8_ref)
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
     stream, _, models = main_path_inputs(torch, device, CHUNK)
@@ -1137,8 +1234,8 @@ def phase_int8(torch, device):
     cases.append(("all -128, K=512", [
         torch.full(shape, -128, dtype=torch.int8, device=device)
         for shape in ((64, 512), (512, 64))]))
-    operands = depth_operands(torch, q, rgb64)
-    cases += [(name, ab) for (name, *_), ab in zip(DEPTH_GEMMS, operands)]
+    products, convs = depth_operands(torch, q, rgb64)
+    cases += [(name, ab) for (name, *_), ab in zip(DEPTH_GEMMS, products)]
     worst = 0
     for label, (a, b) in cases:
         out = int8_matmul_pallas(a, b)
@@ -1155,7 +1252,22 @@ def phase_int8(torch, device):
               f"{int(plain.abs().max())})")
     _need(int(int8_matmul_pallas(*cases[len(I8_TEST_SHAPES)][1])[0, 0])
           == 512 * 128 * 128, "int8: the all -128 product is not 2^23")
-    return operands, worst
+
+    qcases = [(name, *conv) for (name, *_), conv in zip(DEPTH_GEMMS, convs)]
+    qworst = 0.0
+    for label, args, kw in qcases + qconv_edge_cases(torch, device):
+        out = qconv_int8_pallas(*args, **kw)
+        torch.cuda.synchronize()
+        plain = qconv_int8_ref(*args, **kw)
+        err = float((out - plain).abs().max())
+        qworst = max(qworst, err)
+        _need(out.dtype == torch.float32 and out.shape == plain.shape
+              and torch.equal(out, plain), f"qconv {label}: {out.dtype} "
+              f"{tuple(out.shape)}, differs from plain by {err}")
+        print(f"[9] qconv {label}: x {tuple(args[0].shape)}, weight "
+              f"{tuple(args[2].shape)}, {kw}: bitwise equal to the plain "
+              f"version (max |y| {float(plain.abs().max()):.4g})")
+    return (products, convs), worst, qworst
 
 
 def i8_bound(m, k, n):
@@ -1168,16 +1280,22 @@ def i8_bound(m, k, n):
 
 
 def phase_int8_times(torch, device, operands):
-    """Per-launch times at the depth network's eight shapes; returns the
-    row's numbers summed over the eight (one processed frame)."""
+    """Times at the depth network's eight layers: the product kernel
+    beside its plain version and ``torch._int_mm``, the fused launch beside
+    its plain version and the eager chain it replaces (the product kernel
+    inside the plain composition); returns each row's numbers summed over
+    the eight (one processed frame)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.qconv import (qconv_int8_pallas,
+                                                       qconv_int8_ref)
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
+    products, convs = operands
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     nbytes = flop = 0
-    for (name, m, k, n), (a, b) in zip(DEPTH_GEMMS, operands):
+    for (name, m, k, n), (a, b) in zip(DEPTH_GEMMS, products):
         # torch._int_mm takes M > 16 and K, N multiples of 8 (K > 16 too,
         # on some versions): zero-padded copies, made once, outside the
         # timing.
@@ -1209,7 +1327,42 @@ def phase_int8_times(torch, device, operands):
           f"us, torch._int_mm {total['library_ms'] * 1e3:.2f} us, bound "
           f"{total['bound_ms'] * 1e3:.4f} us ({total['bound_by']}: "
           f"{nbytes} bytes, {flop} operations)")
-    return total
+
+    fused = dict(ms=0.0, plain_ms=0.0, library_ms=None)
+    chain_ms = 0.0
+    nbytes = flop = 0
+    for (name, m, k, n), (args, kw) in zip(DEPTH_GEMMS, convs):
+        ms = device_ms(torch, lambda: qconv_int8_pallas(*args, **kw))
+        plain_ms = device_ms(torch, lambda: qconv_int8_ref(*args, **kw))
+        eager_ms = device_ms(torch, lambda: qconv_int8_ref(
+            *args, **kw, matmul=int8_matmul_pallas))
+        # x read once, weights, scales and bias once, y written once
+        # (float32); the int8 products at the int8 tensor-core peak.
+        x, _, qw, wscale, b = args
+        layer_bytes = 4 * x.numel() + qw.numel() + 4 * (
+            1 + wscale.numel() + b.numel()) + 4 * m * n
+        b_ms = max(layer_bytes / HBM_BYTES_PER_S,
+                   2 * m * k * n / INT8_OP_PER_S) * 1e3
+        print(f"[10] qconv {name} (x {tuple(x.shape)}, {m}x{k}x{n}): fused "
+              f"{ms * 1e3:.2f} us, the eager chain it replaces (product "
+              f"kernel) {eager_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+              f"us, bound {b_ms * 1e3:.4f} us")
+        fused["ms"] += ms
+        fused["plain_ms"] += plain_ms
+        chain_ms += eager_ms
+        nbytes += layer_bytes
+        flop += 2 * m * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / INT8_OP_PER_S * 1e3
+    fused["bound_ms"], fused["bound_by"] = (
+        (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    print(f"[10] qconv, the 8 fused launches of one processed frame: "
+          f"{fused['ms'] * 1e3:.2f} us, the eager chains they replace "
+          f"{chain_ms * 1e3:.2f} us, plain {fused['plain_ms'] * 1e3:.2f} us, "
+          f"bound {fused['bound_ms'] * 1e3:.4f} us ({fused['bound_by']}: "
+          f"{nbytes} bytes, {flop} operations); no PyTorch call convolves "
+          f"int8 on CUDA")
+    return {"int8_matmul_pallas": total, "int8_matmul_pallas/qconv": fused}
 
 
 # ---------------------------------------------------------------------------
@@ -1233,8 +1386,11 @@ def quantised_models(torch, device, models):
 
 
 def phase_int8_main_path(torch, device, n_frames=N_FRAMES):
-    """The int8 compressor on the kernel and on the plain version; returns
-    the kernel run's ``(launches, (compressor, state, stats))``."""
+    """The int8 compressor on the fused launch (the main path) and on the
+    plain version, and the fp32 compressor; returns the launches of the
+    two int8 kernels in the main path's run (the product kernel's are 0:
+    the fused launch does its work) and the main path's ``(compressor,
+    state, stats)``."""
     from repro_torch.api import EPICCompressor
     from repro_torch.core import depth as depth_mod
     from repro_torch.core import pipeline as pipe
@@ -1246,8 +1402,8 @@ def phase_int8_main_path(torch, device, n_frames=N_FRAMES):
     cfg = pipe.EPICConfig()
     runs = {}
     for label, run_models, backend in (
-            ("int8, kernel", qmodels, "pallas"),
-            ("int8, plain int8_matmul", qmodels, "ref"),
+            ("int8, fused", qmodels, "pallas"),
+            ("int8, plain", qmodels, "ref"),
             ("fp32", models, None)):
         if backend is not None:
             q.matmul_backend = backend
@@ -1259,40 +1415,50 @@ def phase_int8_main_path(torch, device, n_frames=N_FRAMES):
         state, stats, _, _, secs = run_session(torch, comp, stream, device)
         counts = {k: w.launches for k, w in wrappers.items()}
         frame = stream[0][0]
-        depth_ms = device_ms(
-            torch, lambda: depth_mod.predict_fullres(run_models.depth_model,
-                                                     frame), per_graph=20)
+
+        def depth():
+            return depth_mod.predict_fullres(run_models.depth_model, frame)
+
+        depth_ms = device_ms(torch, depth, per_graph=20)
+        _, depth_launches, _ = device_profile(torch, depth)
         runs[label] = (comp, state, stats, counts)
-        processed = int(stats.processed.sum())
+        processed = max(int(stats.processed.sum()), 1)
         print(f"[11] {label}: {n_frames / secs:.1f} frames/s, processed "
-              f"{processed}/{n_frames}, depth stage {depth_ms * 1e3:.2f} us "
-              f"of device time per processed frame, int8_matmul launches "
+              f"{int(stats.processed.sum())}/{n_frames}, depth stage "
+              f"{depth_ms * 1e3:.2f} us of device time and {depth_launches} "
+              f"device launches per processed frame; launches in the run: "
+              f"qconv {counts['int8_matmul_pallas/qconv']} "
+              f"({counts['int8_matmul_pallas/qconv'] / processed:.2f} per "
+              f"processed frame), int8_matmul "
               f"{counts['int8_matmul_pallas']} "
-              f"({counts['int8_matmul_pallas'] / max(processed, 1):.2f} per "
-              f"processed frame), reproject_match_fused launches "
-              f"{counts['reproject_match_fused']}")
+              f"({counts['int8_matmul_pallas'] / processed:.2f}), "
+              f"reproject_match_fused {counts['reproject_match_fused']}")
     q.matmul_backend = "pallas"
 
-    comp, state, stats, counts = runs["int8, kernel"]
-    _, rstate, rstats, rcounts = runs["int8, plain int8_matmul"]
+    comp, state, stats, counts = runs["int8, fused"]
+    _, rstate, rstats, rcounts = runs["int8, plain"]
     processed = int(stats.processed.sum())
-    _need(counts["int8_matmul_pallas"] == 8 * processed > 0,
-          f"int8: {counts['int8_matmul_pallas']} kernel launches for "
+    _need(counts["int8_matmul_pallas/qconv"] == 8 * processed > 0,
+          f"int8: {counts['int8_matmul_pallas/qconv']} fused launches for "
           f"{processed} processed frames, not 8 each")
-    _need(rcounts["int8_matmul_pallas"] == 0,
-          "int8: the plain run launched the kernel")
+    _need(counts["int8_matmul_pallas"] == 0,
+          "int8: the main path launched the product kernel")
+    _need(rcounts["int8_matmul_pallas"] == 0
+          and rcounts["int8_matmul_pallas/qconv"] == 0,
+          "int8: the plain run launched a kernel")
     _need(all(torch.equal(a, b) for a, b in zip(stats, rstats)),
-          "int8: counters differ between the kernel and the plain version")
+          "int8: counters differ from the plain version")
     _need(all(torch.equal(a, b) for a, b in
               zip(state_leaves(state), state_leaves(rstate))),
-          "int8: state differs between the kernel and the plain version")
+          "int8: state differs from the plain version")
     _need(all(t.device == device for t in state_leaves(state)),
           "int8: state left the card")
     _need(all(bool(torch.isfinite(t).all()) for t in state_leaves(state)
               if t.dtype.is_floating_point), "int8: non-finite state")
     fp32_stats = runs["fp32"][2]
-    print(f"[11] int8 kernel vs plain int8_matmul: counters and state "
-          f"bitwise equal; matched {int(stats.n_matched.sum())} (fp32 "
+    print(f"[11] int8 fused run vs the plain run: "
+          f"counters and state bitwise equal; matched "
+          f"{int(stats.n_matched.sum())} (fp32 "
           f"{int(fp32_stats.n_matched.sum())}), inserted "
           f"{int(stats.n_inserted.sum())} (fp32 "
           f"{int(fp32_stats.n_inserted.sum())}), occupancy "
@@ -1300,7 +1466,9 @@ def phase_int8_main_path(torch, device, n_frames=N_FRAMES):
           f"{depth_mod.memory_bytes(models.depth_model, True)} bytes in "
           f"int8, {depth_mod.memory_bytes(models.depth_model, False)} in "
           f"fp32")
-    return counts["int8_matmul_pallas"], (comp, state, stats)
+    launches = {k: counts[k] for k in
+                ("int8_matmul_pallas/qconv", "int8_matmul_pallas")}
+    return launches, (comp, state, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -1466,6 +1634,9 @@ def phase_scans(torch, device):
         _need(out.dtype == torch.float32 and bool(torch.isfinite(out).all())
               and bool(torch.isfinite(state).all()),
               f"{name} {shape}: output {out.dtype}, not finite")
+        _need(name != "mamba2_ssd_pallas"
+              or out.transpose(1, 2).is_contiguous(),
+              f"{name} {shape}: y is not a view of a (B, T, H, P) buffer")
         p_out, p_state = chunked(*args, chunk=chunk)
         err = max(float((out - p_out).abs().max()),
                   float((state - p_state).abs().max()))
@@ -1519,6 +1690,22 @@ def ssd_bound(b, h, t, p, n, c, elem_bytes):
     return max(t_bytes, t_ops), by, flop, nbytes
 
 
+def ssd_tensor_core_bound(b, h, t, p, n, c, elem_bytes):
+    """The SSD function's floor on the tensor cores (the kernel's header):
+    the three TF32 products of 3xTF32 at 495 TFLOP/s, or the function's
+    own bytes (:func:`ssd_bound`); and the bytes this design moves besides:
+    the chunk states through device memory (written, read and overwritten
+    with the incoming states, read) and a second read of x.  Returns
+    ``(ms, "bytes" | "operations", design_ms)``."""
+    _, _, flop, nbytes = ssd_bound(b, h, t, p, n, c, elem_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flop / TF32_FLOP_PER_S * 1e3
+    states = 4 * b * h * (t // c) * n * p
+    design = nbytes + 4 * states + b * h * t * p * elem_bytes
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, design / HBM_BYTES_PER_S * 1e3
+
+
 def phase_scan_times(torch, device):
     """Kernel and plain times at the full-width shapes, in the dtype and
     layout each model hands its scan (RWKV6 bf16, SSD float32)."""
@@ -1543,11 +1730,20 @@ def phase_scan_times(torch, device):
         bound_ms, bound_by, flop, nbytes = bound_fn(*dims, chunk, elem)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None)
+        extra = ""
+        if name == "mamba2_ssd_pallas":
+            tc_ms, tc_by, design_ms = ssd_tensor_core_bound(*dims, chunk,
+                                                            elem)
+            extra = (f"; the function's floor on the tensor cores (3xTF32) "
+                     f"{tc_ms * 1e3:.2f} us ({tc_by}), kernel "
+                     f"{ms / tc_ms:.2f}x it; this design's bytes (the chunk "
+                     f"states through device memory) {design_ms * 1e3:.2f} "
+                     f"us")
         print(f"[14] {name}: {tuple(dims)} chunk {chunk} "
               f"{str(dtype).split('.')[1]}: kernel {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}: {flop / 1e9:.3f} GFLOP at 67 TFLOP/s f32, "
-              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s){extra}; kernel at "
               f"{flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s; no single PyTorch "
               f"call computes this op")
     return times
@@ -1685,7 +1881,8 @@ def profile_recurrent(torch, device, arch):
 
     profile_steps(torch, f"[15] {arch} bf16 pallas", (
         ("prefill", lambda: prefill(params, batch), 1, "prefill"),
-        ("decode", run_decode, SSM_NEW, "step")))
+        ("decode", run_decode, SSM_NEW, "step")),
+        focus="ssd_" if arch == "zamba2-2.7b" else "rwkv6_scan")
     del params, state, model
     torch.cuda.empty_cache()
 
@@ -1781,9 +1978,11 @@ def main() -> int:
     times.update(phase_flash_times(torch, device))
     launches.update(phase_efm(torch, device, kernel_wrappers()))
     phase_efm_profile(torch, device)
-    operands, errs["int8_matmul_pallas"] = phase_int8(torch, device)
-    times["int8_matmul_pallas"] = phase_int8_times(torch, device, operands)
-    launches["int8_matmul_pallas"], epic = phase_int8_main_path(torch, device)
+    operands, *i8_errs = phase_int8(torch, device)
+    errs["int8_matmul_pallas"], errs["int8_matmul_pallas/qconv"] = i8_errs
+    times.update(phase_int8_times(torch, device, operands))
+    i8_launches, epic = phase_int8_main_path(torch, device)
+    launches.update(i8_launches)
     phase_baselines(torch, device, epic)
     errs.update(phase_scans(torch, device))
     times.update(phase_scan_times(torch, device))

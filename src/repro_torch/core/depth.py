@@ -5,10 +5,11 @@ Port of ``repro.core.depth``: a FastDepth-style monocular depth CNN on a
 prediction back), with a depthwise-separable encoder and a
 nearest-upsample decoder with additive skips, and its int8 post-training
 quantisation (:class:`QuantizedParams`, :func:`forward_int8`; the paper
-deploys the network in 8-bit integers).  The int8 path runs its dense and
-pointwise convolutions as :func:`im2col` + the ``int8_matmul`` op (the
-CUDA kernel on the card) and its depthwise convolutions as nine shifted
-int32 products; every int32 sum is exact.
+deploys the network in 8-bit integers).  The int8 path runs each dense
+and pointwise convolution, with its quantisation, dequantisation, bias
+and ReLU, as one launch of the fused int8 kernel on the card
+(``kernels/int8_matmul/qconv.py``), and its depthwise convolutions as
+nine shifted int32 products; every int32 sum is exact.
 
 The public functions keep the JAX package's NHWC layout; the network
 runs NCHW inside.  Two framework differences are handled here:
@@ -22,14 +23,15 @@ runs NCHW inside.  Two framework differences are handled here:
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
 from repro_torch.kernels.int8_matmul import ops as int8_ops
+from repro_torch.kernels.int8_matmul import qconv as _qc
 
 DEPTH_INPUT = 64  # paper: inputs resized to 64x64
 
@@ -216,9 +218,11 @@ class QuantizedParams(nn.Module):
 
     The JAX package's ``QuantizedParams`` (qweights, scales, act_scale) as
     one module of buffers per layer (:func:`qlayer_shapes`).
-    ``matmul_backend`` is the ``int8_matmul`` backend of the dense and
-    pointwise convolutions: ``"pallas"`` (the CUDA kernel; its plain
-    version for CPU tensors) or ``"ref"`` (the plain version).
+    ``matmul_backend`` is the int8 backend of the dense and pointwise
+    convolutions: ``"pallas"``, one fused launch a layer
+    (``qconv_int8_pallas``; its plain version for CPU tensors), or
+    ``"ref"``, the plain version (``qconv_int8_ref``).  Both are bitwise
+    equal.
     """
 
     def __init__(self, layers: Dict[str, Dict[str, Tensor]],
@@ -312,74 +316,19 @@ def _calibrate(model: DepthNet, rgb64: Tensor) -> Dict[str, Tensor]:
     return record
 
 
-def im2col(x: Tensor, k: int,
-           stride: int = 1) -> Tuple[Tensor, Tuple[int, int, int]]:
-    """``(N, H, W, C)`` -> ``(N Ho Wo, k k C)``: one row per output pixel,
-    its ``k x k`` window with columns ordered ``(dy, dx, c)``, so the HWIO
-    kernel reshaped to ``(k k C, cout)`` multiplies it.  Returns the
-    matrix and ``(N, Ho, Wo)``.
-
-    Padding is JAX's ``SAME`` (:func:`conv2d_same`: at stride 2 an even
-    input pads (0, 1)); the windows are strided slices of the padded
-    input, so any dtype works (``F.unfold`` takes no int8).
-    """
-    n, c = x.shape[0], x.shape[3]
-    windows = _same_windows(x, k, stride)
-    ho, wo = windows[0].shape[1:3]
-    return (torch.stack(windows, dim=3).reshape(n * ho * wo, k * k * c),
-            (n, ho, wo))
-
-
-def _same_windows(x: Tensor, k: int, stride: int) -> list:
-    """The ``k k`` shifted, strided views of NHWC ``x`` padded as JAX's
-    ``SAME``, in ``(dy, dx)`` order: view ``(dy, dx)`` holds, for every
-    output pixel, the input under that tap of the window."""
-    h, w = x.shape[1], x.shape[2]
-    ho, wo = -(-h // stride), -(-w // stride)
-    ph = max((ho - 1) * stride + k - h, 0)
-    pw = max((wo - 1) * stride + k - w, 0)
-    xp = F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
-    return [
-        xp[:, dy:dy + (ho - 1) * stride + 1:stride,
-           dx:dx + (wo - 1) * stride + 1:stride]
-        for dy in range(k) for dx in range(k)
-    ]
-
-
-# float32(1 / 127): XLA turns the reference's ``max(xscale, 1e-8) / 127.0``
-# into a product with this constant when it compiles ``forward_int8``.
-_INV_127 = float(np.float32(1.0) / np.float32(127.0))
-
-
-def quantize_activation(x: Tensor, xscale: Tensor) -> Tuple[Tensor, Tensor]:
-    """Symmetric per-tensor int8 of ``x``: ``(qx, sx)`` with ``x ~ qx sx``.
-
-    As the JAX package's pipeline computes it under ``jax.jit``: the scale
-    is ``max(xscale, 1e-8)`` times float32(1/127) (eager JAX divides by
-    127, which can differ by an ulp and flip a rounded activation); the
-    input is divided by the scale, not multiplied by its reciprocal, and
-    rounded half to even.
-    """
-    sx = xscale.clamp_min(1e-8) * _INV_127
-    return torch.round(x / sx).clamp(-127, 127).to(torch.int8), sx
-
-
 def conv_int32(qx: Tensor, qw: Tensor, stride: int = 1,
                backend: str = "ref") -> Tensor:
     """Exact int32 SAME convolution of int8 ``qx (N, H, W, cin)`` with an
-    int8 kernel in the im2col layout ``(k k cin, cout)``, as
-    :func:`im2col` + the ``int8_matmul`` op on ``backend``."""
-    k = math.isqrt(qw.shape[0] // qx.shape[-1])
-    cols, (n, ho, wo) = im2col(qx, k, stride)
-    return int8_ops.int8_matmul(cols, qw, backend=backend).reshape(
-        n, ho, wo, qw.shape[1]
-    )
+    int8 kernel in the im2col layout ``(k k cin, cout)``, as im2col + the
+    ``int8_matmul`` op on ``backend`` (``qconv.conv_int32``)."""
+    return _qc.conv_int32(qx, qw, stride,
+                          partial(int8_ops.int8_matmul, backend=backend))
 
 
 def depthwise_int32(qx: Tensor, qw: Tensor, stride: int = 1) -> Tensor:
     """Exact int32 SAME depthwise 3x3 convolution of int8 ``qx (N, H, W,
     C)`` with ``qw (3, 3, C)``: nine shifted products summed in int32."""
-    windows = _same_windows(qx.to(torch.int32), 3, stride)
+    windows = _qc.same_windows(qx.to(torch.int32), 3, stride)
     taps = qw.to(torch.int32).reshape(9, -1)
     out = windows[0] * taps[0]
     for window, tap in zip(windows[1:], taps[1:]):
@@ -391,26 +340,23 @@ def _qconv(x: Tensor, qw: Tensor, wscale: Tensor, xscale: Tensor,
            stride: int = 1, depthwise: bool = False,
            backend: str = "ref") -> Tensor:
     """Int8 conv: quantize the input, integer conv, dequantize as
-    ``(out sx) wscale`` (the JAX package's order)."""
-    qx, sx = quantize_activation(x, xscale)
-    if depthwise:
-        out = depthwise_int32(qx, qw, stride)
-    else:
-        out = conv_int32(qx, qw, stride, backend)
-    return out.to(torch.float32) * sx * wscale
+    ``(out sx) wscale`` (the JAX package's order; ``qconv.quantized_conv``).
+    """
+    conv = (depthwise_int32 if depthwise
+            else partial(conv_int32, backend=backend))
+    return _qc.quantized_conv(x, xscale, qw, wscale, stride, conv)
 
 
 def _qblock(x: Tensor, layer: _QLayer, backend: str) -> Tensor:
     if layer.kind == "conv":
-        x = _qconv(x, layer.w, layer.w_scale, layer.act_scale, layer.stride,
-                   backend=backend) + layer.b
-    else:
-        x = _qconv(x, layer.dw, layer.dw_scale, layer.act_scale,
-                   layer.stride, depthwise=True)
-        # The pointwise input's scale is taken on the device: no host sync.
-        x = _qconv(x, layer.pw, layer.pw_scale, x.abs().amax(), 1,
-                   backend=backend) + layer.b
-    return F.relu(x)
+        return int8_ops.qconv_int8(x, layer.act_scale, layer.w, layer.w_scale,
+                                   layer.b, stride=layer.stride,
+                                   backend=backend)
+    x = _qconv(x, layer.dw, layer.dw_scale, layer.act_scale, layer.stride,
+               depthwise=True)
+    # The pointwise input's scale is taken on the device: no host sync.
+    return int8_ops.qconv_int8(x, x.abs().amax(), layer.pw, layer.pw_scale,
+                               layer.b, backend=backend)
 
 
 def _upsample2_nhwc(x: Tensor) -> Tensor:
@@ -432,7 +378,6 @@ def forward_int8(q: QuantizedParams, rgb64: Tensor) -> Tensor:
         if skip is not None:
             x = x + skips[skip]
     head = q.layers[_HEAD[0]]
-    x = _qconv(x, head.w, head.w_scale, head.act_scale, 1,
-               backend=backend) + head.b
-    x = x[..., 0]
+    x = int8_ops.qconv_int8(x, head.act_scale, head.w, head.w_scale, head.b,
+                            relu=False, backend=backend)[..., 0]
     return torch.logaddexp(x, torch.zeros_like(x)) + 0.05

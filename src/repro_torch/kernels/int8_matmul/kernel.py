@@ -3,9 +3,10 @@
 ``int8_matmul_pallas`` keeps the name and the op contract of the JAX
 package's Pallas kernel (``repro/kernels/int8_matmul/kernel.py``):
 ``(M, K) int8 x (K, N) int8 -> (M, N) int32``, exact.  It launches
-``csrc/int8_matmul.cu``, whose header says what bounds the kernel; the
-Pallas tile sizes and its zero-padding have no counterpart (the kernel
-masks the ragged edges itself).
+``csrc/int8_matmul.cu`` (int8 tensor-core products), whose header says
+what bounds the kernel; the Pallas tile sizes and its zero-padding have
+no counterpart (the kernel masks the ragged edges itself).  The same
+library holds the fused convolution behind ``qconv.py``.
 
 For tensors on the CPU the wrapper takes :func:`int8_matmul_ref`, the
 plain version; for tensors on a CUDA device it launches the kernel or
@@ -26,7 +27,9 @@ LIBRARY = CudaLibrary(
     "int8_matmul",
     Path(__file__).resolve().parent / "csrc",
     # a b c, m k n, stream
-    {"int8_matmul_launch": (PTR, PTR, PTR, INT, INT, INT, PTR)},
+    {"int8_matmul_launch": (PTR, PTR, PTR, INT, INT, INT, PTR),
+     # x xscale w wscale bias y, batch h w cin cout ks stride relu, stream
+     "qconv_int8_launch": (PTR,) * 6 + (INT,) * 8 + (PTR,)},
 )
 
 # |a|, |b| <= 128: K * 2^14 must stay below 2^31 (ref.py's overflow bound).

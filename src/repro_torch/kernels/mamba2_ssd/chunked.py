@@ -19,6 +19,14 @@ strong decay (a_log = -exp(2 z)) put the kernel and this form 3.2e-4
 apart on an H100 at the reference test's (2, 4, 256, 64, 64) shape
 (``chip_smoke.py`` phase 13), each summing its float32 cumsum in another
 order.
+
+:func:`mamba2_ssd_chunk_parallel` takes the same arithmetic in the four
+steps the CUDA kernel spreads over (batch row, head, chunk): C B^T once
+per (batch row, chunk), each chunk's own state, the state passing over
+the chunks, and each chunk's output, written into a (B, T, H, P) buffer.
+It is the plain version of that decomposition (the kernel wrapper's CPU
+route); ``mamba2_ssd_chunked`` stays the plain version the kernel is held
+against on the card.
 """
 
 from __future__ import annotations
@@ -84,3 +92,49 @@ def mamba2_ssd_chunked(
             b_hat[:, :, i].transpose(-1, -2), xc[:, :, i])
     y = y_intra + torch.stack(y_inter, dim=2)
     return y.reshape(b, h, t, p)[:, :, :t_full], s
+
+
+def mamba2_ssd_chunk_parallel(
+    x: Tensor,  # (B, H, T, P)
+    a_log: Tensor,  # (B, H, T)
+    bm: Tensor,  # (B, T, N)
+    cm: Tensor,  # (B, T, N)
+    *,
+    chunk: int = 64,
+) -> Tuple[Tensor, Tensor]:
+    """The SSD scan from a zero state as the kernel decomposes it
+    (``csrc/mamba2_ssd.cu``); ``T % min(chunk, T) == 0``.  Returns y as the
+    (B, H, T, P) view of a (B, T, H, P) buffer, and the final state."""
+    b, h, t, p = x.shape
+    n = bm.shape[-1]
+    c = min(chunk, t)
+    nc = t // c
+    xc = x.float().reshape(b, h, nc, c, p)
+    bc = bm.float().reshape(b, nc, c, n)
+    cc = cm.float().reshape(b, nc, c, n)
+    (hi, lo), _ = split_cumsums(a_log.float().reshape(b, h, nc, c), dim=-1)
+
+    # 1. Per (b, chunk), shared by the heads: G = C B^T.
+    g = torch.matmul(cc, bc.transpose(-1, -2))  # (B, nc, C, C)
+    # 2. Per (b, h, chunk): the chunk's own state (B exp(ca_C - ca))^T x.
+    b_hat = bc[:, None] * torch.exp(
+        (hi[..., -1:] - hi) + (lo[..., -1:] - lo))[..., None]
+    s_own = torch.matmul(b_hat.transpose(-1, -2), xc)  # (B, H, nc, N, P)
+    # 3. Per (b, h), in order: each chunk's incoming state.
+    decay = torch.exp(hi[..., -1] + lo[..., -1])  # (B, H, nc)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    incoming = []
+    for i in range(nc):
+        incoming.append(state)
+        state = decay[..., i, None, None] * state + s_own[:, :, i]
+    # 4. Per (b, h, chunk): y = (G o L) x + exp(ca) (C h_in).
+    expo = torch.clamp((hi[..., :, None] - hi[..., None, :])
+                       + (lo[..., :, None] - lo[..., None, :]), max=0.0)
+    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.where(mask, torch.exp(expo), torch.zeros_like(expo))
+    c_dec = cc[:, None] * torch.exp(hi + lo)[..., None]  # (B, H, nc, C, N)
+    y = torch.matmul(g[:, None] * lmat, xc) + torch.matmul(
+        c_dec, torch.stack(incoming, dim=2))
+    out = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
+    out.view(b, nc, c, h, p).copy_(y.permute(0, 2, 3, 1, 4))
+    return out.transpose(1, 2), state

@@ -6,15 +6,18 @@ package's Pallas kernel (``repro/kernels/mamba2_ssd/kernel.py``): x
 ``(B, H, T, P)``, a_log ``(B, H, T)``, B and C ``(B, T, N)`` shared across
 heads, from a zero state, ``T % min(chunk, T) == 0``; returns y
 ``(B, H, T, P)`` and the final state ``(B, H, N, P)``, both float32.  It
-launches ``csrc/mamba2_ssd.cu``, whose header says what bounds the kernel.
-The kernel reads its inputs through their strides, so the model's
-``(B, T, H, P)`` tensors seen as ``(B, H, T, P)`` go in uncopied; the last
-dim of x, B and C must be contiguous.
+launches ``csrc/mamba2_ssd.cu`` (three kernels: the chunks' own states and
+C Bᵀ, the state passing, the outputs; counted as one launch of the op),
+whose header says what bounds it.  The kernel reads its inputs through
+their strides, so the model's ``(B, T, H, P)`` tensors seen as
+``(B, H, T, P)`` go in uncopied; the last dim of x, B and C must be
+contiguous.  y is written into a ``(B, T, H, P)`` buffer and returned as
+its ``(B, H, T, P)`` view, so the model's transpose back is a view too.
 
-For tensors on the CPU the wrapper takes :func:`mamba2_ssd_chunked`, the
-plain version of the same chunked arithmetic; for tensors on a CUDA
+For tensors on the CPU the wrapper takes :func:`mamba2_ssd_chunk_parallel`,
+the plain version of the kernel's decomposition; for tensors on a CUDA
 device it launches the kernel or raises.  ``mamba2_ssd_pallas.launches``
-counts its kernel launches.
+counts its launches.
 """
 
 from __future__ import annotations
@@ -25,28 +28,21 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from repro_torch.kernels._build import (I64, INT, PTR, SMEM_PER_BLOCK,
-                                        CudaLibrary, check)
-from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+from repro_torch.kernels._build import I64, INT, PTR, CudaLibrary, check
+from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunk_parallel
 
 LIBRARY = CudaLibrary(
     "mamba2_ssd",
     Path(__file__).resolve().parent / "csrc",
-    # x a b c y h, b nh t p n chunk, the strides of x a (b, h, t) and of
-    # b c (b, t), dtype, smem bytes, stream
-    {"mamba2_ssd_launch": (PTR,) * 6 + (INT,) * 6 + (I64,) * 10
-     + (INT,) * 2 + (PTR,)},
+    # x a b c y h, scratch: states gbuf decay; b nh t p n chunk, the strides
+    # of x a (b, h, t) and of b c (b, t), dtype, stream
+    {"mamba2_ssd_launch": (PTR,) * 9 + (INT,) * 6 + (I64,) * 10
+     + (INT, PTR)},
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK = 64
-
-
-def smem_bytes(p: int, n: int, c: int) -> int:
-    """Dynamic shared memory of one block: the state, the chunk's x, B
-    and C (rows padded by one float), its (C, C) weights, the cumsum of
-    a_log as hi and lo parts and the decays to the chunk's end."""
-    return 4 * (n * p + c * p + 2 * c * (n + 1) + c * c + 3 * c)
+MAX_CHUNK = 64  # a CTA's tile: chunk rows
+MAX_STATE = 64  # and N rows of the state
 
 
 def check_inputs(x: Tensor, a_log: Tensor, bm: Tensor, cm: Tensor,
@@ -86,9 +82,8 @@ def check_inputs(x: Tensor, a_log: Tensor, bm: Tensor, cm: Tensor,
     if device.type == "cuda":
         if c > MAX_CHUNK:
             raise ValueError(f"chunk {c} above the kernel's {MAX_CHUNK}")
-        if smem_bytes(p, n, c) > SMEM_PER_BLOCK:
-            raise ValueError(f"P={p}, N={n}, chunk {c} need "
-                             f"{smem_bytes(p, n, c)} bytes of shared memory")
+        if n > MAX_STATE:
+            raise ValueError(f"N={n} above the kernel's {MAX_STATE}")
         for name, y in (("x", x), ("B", bm), ("C", cm)):
             if y.stride(-1) != 1:
                 raise ValueError(f"{name} must be contiguous in its last dim "
@@ -104,22 +99,27 @@ def mamba2_ssd_pallas(
     """
     check_inputs(x, a_log, bm, cm, chunk)
     if x.device.type == "cpu":
-        return mamba2_ssd_chunked(x, a_log, bm, cm, chunk=chunk)
+        return mamba2_ssd_chunk_parallel(x, a_log, bm, cm, chunk=chunk)
     b, h, t, p = x.shape
     n = bm.shape[-1]
     c = min(chunk, t)
-    y = torch.empty((b, h, t, p), dtype=torch.float32, device=x.device)
-    s = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    nc = t // c
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    y, s = f32(b, t, h, p), f32(b, h, n, p)
+    states, gbuf, decay = f32(b, h, nc, n, p), f32(b, nc, c, c), f32(b, h, nc)
     err = LIBRARY.library().mamba2_ssd_launch(
         x.data_ptr(), a_log.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-        y.data_ptr(), s.data_ptr(), b, h, t, p, n, c, *x.stride()[:3],
+        y.data_ptr(), s.data_ptr(), states.data_ptr(), gbuf.data_ptr(),
+        decay.data_ptr(), b, h, t, p, n, c, *x.stride()[:3],
         *a_log.stride(), *bm.stride()[:2], *cm.stride()[:2],
-        _DTYPE_CODES[x.dtype], smem_bytes(p, n, c),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(err, "mamba2_ssd_launch")
     mamba2_ssd_pallas.launches += 1
-    return y, s
+    return y.transpose(1, 2), s
 
 
 mamba2_ssd_pallas.launches = 0

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: reproject-match, flash attention, int8
-matmul, and the RWKV6 and Mamba-2 SSD scans (marked ``cuda``; skipped
-without a card).  Imports no JAX, so it runs where JAX is not installed:
+matmul and the fused int8 convolution, and the RWKV6 and Mamba-2 SSD scans
+(marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -295,22 +295,88 @@ def test_int8_wrapper_rejects_a_non_contiguous_tensor(device):
 
 
 def test_int8_depth_network_launches_eight_kernels(device):
-    """One ``forward_int8`` on the card: 8 launches (2 dense 3x3 and 6
-    pointwise convolutions), the same output as on the plain version."""
+    """One ``forward_int8`` on the card: 8 fused launches (2 dense 3x3 and
+    6 pointwise convolutions) and no product-kernel launch, the same
+    output, bitwise, as on the plain version."""
     from repro_torch.core import depth
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_pallas
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
 
     g = torch.Generator(device=device).manual_seed(0)
     net = depth.init_params(g)
     calib = torch.rand(4, 64, 64, 3, generator=g, device=device)
     q = depth.quantize_params(net, calib)
     x = torch.rand(1, 64, 64, 3, generator=g, device=device)
-    before = int8_matmul_pallas.launches
+    counts = (qconv_int8_pallas.launches, int8_matmul_pallas.launches)
     out = depth.forward_int8(q, x)
-    assert int8_matmul_pallas.launches == before + 8
+    assert (qconv_int8_pallas.launches - counts[0],
+            int8_matmul_pallas.launches - counts[1]) == (8, 0)
     q.matmul_backend = "ref"
     assert torch.equal(out, depth.forward_int8(q, x))
-    assert int8_matmul_pallas.launches == before + 8
+    assert (qconv_int8_pallas.launches - counts[0],
+            int8_matmul_pallas.launches - counts[1]) == (8, 0)
+
+
+# (input (N, H, W, cin), k, cout, stride, relu): the eight layers of
+# forward_int8 at its 64x64 input, then edge cases (odd H and W at stride
+# 2, K = 27, N = 1 without ReLU, M = 75, K = 300: two staged tiles).
+QCONV_LAYERS = [
+    ((1, 64, 64, 3), 3, 16, 2, True), ((1, 16, 16, 16), 1, 32, 1, True),
+    ((1, 8, 8, 32), 1, 64, 1, True), ((1, 8, 8, 64), 1, 64, 1, True),
+    ((1, 16, 16, 64), 1, 32, 1, True), ((1, 32, 32, 32), 1, 16, 1, True),
+    ((1, 64, 64, 16), 1, 16, 1, True), ((1, 64, 64, 16), 3, 1, 1, False),
+    ((2, 33, 31, 8), 3, 16, 2, True), ((1, 15, 17, 3), 3, 5, 2, True),
+    ((1, 12, 10, 16), 3, 1, 1, False), ((3, 5, 5, 12), 1, 70, 1, True),
+    ((1, 9, 7, 300), 1, 9, 1, True),
+]
+
+
+@pytest.mark.parametrize("shape,k,cout,stride,relu", QCONV_LAYERS, ids=str)
+@pytest.mark.parametrize("draw", ["normal", "all zero", "half steps"])
+def test_qconv_kernel_is_bitwise_its_plain_version(device, shape, k, cout,
+                                                   stride, relu, draw):
+    """The fused launch against quantise -> im2col -> int8 product ->
+    dequantise -> + b -> relu, bitwise; ``"all zero"`` clamps the scale to
+    1e-8, ``"half steps"`` (scale 127: a step of 1.0) rounds to even."""
+    from repro_torch.kernels.int8_matmul.qconv import (qconv_int8_pallas,
+                                                       qconv_int8_ref)
+
+    g = torch.Generator(device=device).manual_seed(sum(shape) + k + cout)
+    x = 2 * torch.randn(shape, generator=g, device=device)
+    xscale = x.abs().amax()
+    if draw == "all zero":
+        x.zero_()
+        xscale = xscale * 0
+    elif draw == "half steps":
+        x = torch.round(40 * x) + 0.5
+        xscale = torch.tensor(127.0, device=device)
+    qw = torch.randint(-127, 128, (k * k * shape[-1], cout), generator=g,
+                       device=device, dtype=torch.int8)
+    wscale = 1e-3 + 2e-2 * torch.rand(cout, generator=g, device=device)
+    b = torch.randn(cout, generator=g, device=device)
+    before = qconv_int8_pallas.launches
+    out = qconv_int8_pallas(x, xscale, qw, wscale, b, stride=stride,
+                            relu=relu)
+    torch.cuda.synchronize()
+    assert qconv_int8_pallas.launches == before + 1
+    want = qconv_int8_ref(x, xscale, qw, wscale, b, stride=stride,
+                          relu=relu)
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    assert torch.equal(out, want)
+
+
+def test_qconv_wrapper_rejects_what_the_kernel_does_not_take(device):
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
+
+    x = torch.zeros(1, 8, 8, 16, device=device)
+    qw = torch.zeros(16, 4, dtype=torch.int8, device=device)
+    ws, b = torch.ones(4, device=device), torch.zeros(4, device=device)
+    before = qconv_int8_pallas.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv_int8_pallas(x.transpose(1, 2), x.amax(), qw, ws, b)
+    with pytest.raises(ValueError, match="different devices"):
+        qconv_int8_pallas(x, x.amax().cpu(), qw, ws, b)
+    assert qconv_int8_pallas.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +393,7 @@ RWKV_SHAPES = [(1, 2, 128, 32, 32, 32), (2, 4, 256, 64, 64, 64),
                (4, 40, 1024, 64, 64, 32)]
 SSD_SHAPES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
               (1, 1, 64, 64, 64, 64), (1, 3, 192, 32, 64, 32),
+              (1, 2, 63, 80, 16, 64), (2, 3, 96, 24, 40, 32),
               (4, 80, 1024, 64, 64, 64)]
 
 
@@ -389,6 +456,7 @@ def test_ssd_kernel_matches_its_plain_version(device, shape, dtype, strong):
     torch.cuda.synchronize()
     assert mamba2_ssd_pallas.launches == before + 1
     assert y.dtype == torch.float32 and s.dtype == torch.float32
+    assert y.transpose(1, 2).is_contiguous()  # a (B, T, H, P) buffer
     py, ps = mamba2_ssd_chunked(*args, chunk=chunk)
     assert float((y - py).abs().max()) <= SCAN_TOL
     assert float((s - ps).abs().max()) <= SCAN_TOL

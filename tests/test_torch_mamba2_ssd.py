@@ -5,7 +5,8 @@ draws (``tests/test_kernels.py:238-256``: x, B, C ~ 0.5 N(0, 1), a_log =
 -exp(0.5 N(0, 1) - 2)), go through the reference's sequential ``ref``,
 its ``chunked`` form and its Pallas kernel in interpret mode, and through
 the port's ``ref``, ``chunked`` and ``"pallas"`` route (on the CPU, the
-kernel wrapper's plain version).
+kernel wrapper's plain version, ``mamba2_ssd_chunk_parallel``: the
+kernel's decomposition).
 
 Tolerance: 2e-4, the reference's own gate for the kernel against the
 oracle (``tests/test_kernels.py:263-264``).  The forms sum in other
@@ -23,10 +24,13 @@ from _torch_parity import to_numpy, to_torch
 from repro.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked as j_chunked
 from repro.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas as j_pallas
 from repro.kernels.mamba2_ssd.ref import mamba2_ssd_ref as j_ref
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.mamba2_ssd import ops
-from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+from repro_torch.kernels.mamba2_ssd.chunked import (mamba2_ssd_chunk_parallel,
+                                                    mamba2_ssd_chunked)
 from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_ref
+from repro_torch.models import mamba2
 
 TOL = 2e-4
 # The reference test's shapes (tests/test_kernels.py:250-255).
@@ -125,3 +129,60 @@ def test_pallas_route_refuses_what_the_kernel_does_not_take():
     before = mamba2_ssd_pallas.launches
     mamba2_ssd_pallas(x, a, bm, cm, chunk=16)
     assert mamba2_ssd_pallas.launches == before  # the CPU launches nothing
+
+
+def _jax_ref_and_chunked(args, chunk):
+    """The reference's sequential oracle and chunked form on float32 copies
+    of the port's inputs (bf16 inputs widened, as the kernel widens them)."""
+    jargs = [jnp.asarray(to_numpy(a.float())) for a in args]
+    return {"ref": j_ref(*jargs), "chunked": j_chunked(*jargs, chunk=chunk)}
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64, 16, 8, 64),
+                                   (2, 3, 128, 32, 16, 32)],
+                         ids=["T=C", "4 chunks"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "model"])
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+def test_chunk_parallel_matches_the_reference(shape, dtype, layout, strong):
+    """The plain version of the kernel's decomposition against the
+    reference's ``ref`` and ``chunked`` forms: float32 and bf16 inputs, in
+    the contiguous layout and in the models' ((B, T, H, .) seen as (B, H,
+    T, .)), on the reference test's decay and the strong one."""
+    *dims, chunk = shape
+    x, a, bm, cm = (to_torch(v).to(dtype) for v in _inputs(
+        sum(shape), *dims, strong=strong))
+    if layout == "model":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        a = a.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not x.is_contiguous()
+    y, s = mamba2_ssd_chunk_parallel(x, a, bm, cm, chunk=chunk)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    assert y.transpose(1, 2).is_contiguous()  # a (B, T, H, P) buffer
+    for form, (jy, js) in _jax_ref_and_chunked((x, a, bm, cm), chunk).items():
+        np.testing.assert_allclose(np.asarray(jy), to_numpy(y), atol=TOL,
+                                   err_msg=f"y vs the reference's {form}")
+        np.testing.assert_allclose(np.asarray(js), to_numpy(s), atol=TOL,
+                                   err_msg=f"h vs the reference's {form}")
+    py, ps = mamba2_ssd_chunked(x, a, bm, cm, chunk=chunk)
+    np.testing.assert_allclose(to_numpy(py), to_numpy(y), atol=TOL)
+    np.testing.assert_allclose(to_numpy(ps), to_numpy(s), atol=TOL)
+
+
+def test_mixer_output_is_the_same_on_the_view():
+    """The Zamba2 mixer with its scan on ``"pallas"`` (y the (B, H, T, P)
+    view of a (B, T, H, P) buffer, the CPU route) and on ``"chunked"`` (a
+    contiguous y): the same output and final SSM state."""
+    cfg = get_smoke_config("zamba2-2.7b").replace(
+        param_dtype="float32", compute_dtype="float32", scan_chunk=16)
+    g = torch.Generator().manual_seed(0)
+    p = mamba2.init_mamba_block(g, cfg, device="cpu")
+    x = torch.randn(2, 48, cfg.d_model, generator=g)
+    outs = {b: mamba2.mamba_block(p, x, cfg, backend=b, return_state=True)
+            for b in ("pallas", "chunked")}
+    (out, conv, ssm), (pout, pconv, pssm) = outs["pallas"], outs["chunked"]
+    assert out.shape == (2, 48, cfg.d_model) and out.is_contiguous()
+    np.testing.assert_allclose(to_numpy(out), to_numpy(pout), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(conv, pconv)
+    np.testing.assert_allclose(to_numpy(ssm), to_numpy(pssm), atol=TOL)
