@@ -11,10 +11,10 @@ and prints no result line):
 1. The card's name and power limit; TF32 off; the CUDA kernels built from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel;
    ``-Xptxas -v`` of each kernel (registers, shared memory, spills: the
-   tensor-core flash kernel and the SSD kernels must spill nothing) and
-   the tensor-core instructions in ``cuobjdump -sass``: ``HGMMA`` on bf16
-   (flash attention), ``IMMA`` on s8 (the int8 product and the fused
-   int8 convolution), ``HMMA`` on TF32 (the SSD scan).
+   tensor-core flash kernel and the SSD and RWKV6 kernels must spill
+   nothing) and the tensor-core instructions in ``cuobjdump -sass``:
+   ``HGMMA`` on bf16 (flash attention), ``IMMA`` on s8 (the int8 product
+   and the fused int8 convolution), ``HMMA`` on TF32 (the two scans).
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
@@ -90,14 +90,16 @@ and prints no result line):
    layout the models hand over ((B, T, H, .) seen as (B, H, T, .), read
    through its strides), and on a strong-decay draw (w_log = -exp(2 z)):
    within 2e-4, the reference's gate.
-   The SSD kernel returns y as the (B, H, T, P) view of a (B, T, H, P)
-   buffer.
+   Both kernels return their output as the (B, H, T, .) view of a
+   (B, T, H, .) buffer.
 14. Their times at the full-width shapes in the models' layout (CUDA graph
    replay between CUDA events) beside the plain version's and the bound
    (the products the chunked form needs, over the lower triangle, at the
-   float32 CUDA-core peak; for the SSD kernel also the function's floor
-   on the tensor cores, and the bytes its design moves).  ``scripts/time_int8_ssd.py`` times a parent tree's SSD
-   kernel and int8 depth stage beside these in one call.
+   float32 CUDA-core peak; for both kernels also the function's floor on
+   the tensor cores, and the bytes their designs move; for the RWKV6
+   kernel its exponentials).  ``scripts/time_port_paths.py`` times a
+   parent tree's scan kernels, their prefills and the int8 depth stage
+   beside these in one call.
 15. The RWKV6 and hybrid answer paths at full width: RWKV6-3B (32 layers,
    d_model 2560) and Zamba2-2.7B (54 Mamba-2 layers, d_model 2560, 9
    shared-attention invocations), seeded random bf16 weights, prefill 4
@@ -107,7 +109,8 @@ and prints no result line):
    same in float32 at a cut depth (8 and 12 layers), where logits, greedy
    tokens and the serve state of the two backends agree within 1e-3.  The
    bf16 ``"pallas"`` prefill and decode are profiled as in phase 8, with
-   the scan kernel's share of the device time.
+   the scan kernels' share of the device time and their device launches
+   (three a scan).
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 two rows: ``flash_attention_pallas``, the bf16 tensor-core instance of
@@ -268,7 +271,8 @@ def phase_build(torch) -> None:
     for lib, kernel, count, pattern in (
             (fa_lib, "fa_wgmma_kernel", 2, r"HGMMA\.[\w.]*BF16"),
             (i8_lib, None, 0, r"IG?MMA\.[\w.]*S8"),
-            (ssd_lib, "ssd_", 6, r"HG?MMA\.[\w.]*TF32")):
+            (ssd_lib, "ssd_", 6, r"HG?MMA\.[\w.]*TF32"),
+            (rwkv_lib, "rwkv_", 14, r"HG?MMA\.[\w.]*TF32")):
         check_tensor_core_build(paths[libs.index(lib)], kernel, count,
                                 pattern)
 
@@ -278,7 +282,7 @@ def check_tensor_core_build(path, kernel, count, pattern) -> None:
     spill nothing (``-Xptxas -v``), and the library runs its tensor-core
     instructions: ``pattern`` in its SASS (``cuobjdump -sass``): ``HGMMA``
     on bf16 for flash attention (wgmma), ``IMMA`` on s8 for the int8
-    kernels, ``HMMA`` on TF32 for the SSD scan (mma.sync)."""
+    kernels, ``HMMA`` on TF32 for the two scans (mma.sync)."""
     import re
     import shutil
 
@@ -1634,9 +1638,9 @@ def phase_scans(torch, device):
         _need(out.dtype == torch.float32 and bool(torch.isfinite(out).all())
               and bool(torch.isfinite(state).all()),
               f"{name} {shape}: output {out.dtype}, not finite")
-        _need(name != "mamba2_ssd_pallas"
-              or out.transpose(1, 2).is_contiguous(),
-              f"{name} {shape}: y is not a view of a (B, T, H, P) buffer")
+        _need(out.transpose(1, 2).is_contiguous(),
+              f"{name} {shape}: the output is not a view of a (B, T, H, .) "
+              f"buffer")
         p_out, p_state = chunked(*args, chunk=chunk)
         err = max(float((out - p_out).abs().max()),
                   float((state - p_state).abs().max()))
@@ -1706,6 +1710,33 @@ def ssd_tensor_core_bound(b, h, t, p, n, c, elem_bytes):
     return max(t_bytes, t_ops), by, design / HBM_BYTES_PER_S * 1e3
 
 
+def rwkv_tensor_core_bound(b, h, t, dk, dv, c, elem_bytes, leaf=8):
+    """The RWKV6 function's floor on the tensor cores (the kernel's
+    header), as :func:`ssd_tensor_core_bound`: the three TF32 products of
+    3xTF32 at 495 TFLOP/s, or the function's own bytes
+    (:func:`rwkv_bound`); and what this design adds: the chunk states
+    through device memory (written, read and overwritten with the incoming
+    states, read) and a second read of k, v and w_log; and its
+    exponentials, one MUFU.EX2 each at 16 a clock per SM (132 SMs at the
+    H100 SXM's 1.98 GHz boost clock): per chunk k exp(W_C - W), exp(W_C),
+    r exp(We), the operands of each level of products between leaves of
+    ``leaf`` rows, and the pairs within each leaf.  Returns ``(ms, "bytes"
+    | "operations", design_ms, exponentials, exp_ms)``."""
+    _, _, flop, nbytes = rwkv_bound(b, h, t, dk, dv, c, elem_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flop / TF32_FLOP_PER_S * 1e3
+    states = 4 * b * h * (t // c) * dk * dv
+    design = nbytes + 4 * states + (2 * dk + dv) * b * h * t * elem_bytes
+    levels = max(0, (-(-c // leaf) - 1).bit_length())
+    pairs = sum(n * (n - 1) // 2 for n in
+                (min(leaf, c - i) for i in range(0, c, leaf)))
+    exps = b * h * (t // c) * dk * (2 * c + 1 + levels * c + pairs)
+    exp_ms = exps / (16 * 132 * 1.98e9) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops), by, design / HBM_BYTES_PER_S * 1e3, exps,
+            exp_ms)
+
+
 def phase_scan_times(torch, device):
     """Kernel and plain times at the full-width shapes, in the dtype and
     layout each model hands its scan (RWKV6 bf16, SSD float32)."""
@@ -1730,15 +1761,20 @@ def phase_scan_times(torch, device):
         bound_ms, bound_by, flop, nbytes = bound_fn(*dims, chunk, elem)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None)
-        extra = ""
         if name == "mamba2_ssd_pallas":
             tc_ms, tc_by, design_ms = ssd_tensor_core_bound(*dims, chunk,
                                                             elem)
-            extra = (f"; the function's floor on the tensor cores (3xTF32) "
-                     f"{tc_ms * 1e3:.2f} us ({tc_by}), kernel "
-                     f"{ms / tc_ms:.2f}x it; this design's bytes (the chunk "
-                     f"states through device memory) {design_ms * 1e3:.2f} "
-                     f"us")
+            exps = ""
+        else:
+            tc_ms, tc_by, design_ms, n_exp, exp_ms = rwkv_tensor_core_bound(
+                *dims, chunk, elem)
+            exps = (f"; its {n_exp / 1e6:.1f} M exponentials "
+                    f"{exp_ms * 1e3:.2f} us")
+        extra = (f"; the function's floor on the tensor cores (3xTF32) "
+                 f"{tc_ms * 1e3:.2f} us ({tc_by}), kernel "
+                 f"{ms / tc_ms:.2f}x it; this design's bytes (the chunk "
+                 f"states through device memory) {design_ms * 1e3:.2f} us"
+                 + exps)
         print(f"[14] {name}: {tuple(dims)} chunk {chunk} "
               f"{str(dtype).split('.')[1]}: kernel {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
@@ -1882,7 +1918,7 @@ def profile_recurrent(torch, device, arch):
     profile_steps(torch, f"[15] {arch} bf16 pallas", (
         ("prefill", lambda: prefill(params, batch), 1, "prefill"),
         ("decode", run_decode, SSM_NEW, "step")),
-        focus="ssd_" if arch == "zamba2-2.7b" else "rwkv6_scan")
+        focus="ssd_" if arch == "zamba2-2.7b" else "rwkv_")
     del params, state, model
     torch.cuda.empty_cache()
 

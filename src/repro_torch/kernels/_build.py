@@ -30,8 +30,8 @@ BASE_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Shared memory one block may use on Hopper (227 KB), dynamic beyond 48 KB.
-SMEM_PER_BLOCK = 232_448
+# Headers shared by several libraries (``#include "tf32_tiles.cuh"``).
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 
 # ctypes argument types for the C entries' signatures.
 PTR, INT, I64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -54,21 +54,25 @@ class CudaLibrary:
     ``name`` names the library file; ``csrc`` holds its ``*.cu`` (and
     ``*.cuh``) sources; ``signatures`` maps each C entry to its ``ctypes``
     argument types (every entry returns ``int``); ``flags`` are added to
-    :data:`BASE_FLAGS`.
+    :data:`BASE_FLAGS`; ``include`` names directories of shared headers,
+    passed to ``nvcc -I`` and hashed with the sources, so an edited shared
+    header rebuilds every library that includes it.
     """
 
     def __init__(self, name: str, csrc: Path,
                  signatures: Dict[str, Tuple[type, ...]],
-                 flags: Sequence[str] = ()):
+                 flags: Sequence[str] = (), include: Sequence[Path] = ()):
         self.name = name
         self.csrc = Path(csrc)
         self.build_dir = self.csrc.parent / "build"
         self.signatures = dict(signatures)
+        self.include = tuple(Path(d) for d in include)
         self.flags = BASE_FLAGS + tuple(flags)
         self._lib = None
 
     def sources(self):
-        return sorted(self.csrc.glob("*.cu")) + sorted(self.csrc.glob("*.cuh"))
+        return (sorted(self.csrc.glob("*.cu")) + sorted(self.csrc.glob("*.cuh"))
+                + [h for d in self.include for h in sorted(d.glob("*.cuh"))])
 
     def library_path(self) -> Path:
         """Where the library for the current sources and flags lives."""
@@ -89,7 +93,8 @@ class CudaLibrary:
             return out
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *self.flags, "-o", str(tmp),
+        cmd = [_nvcc(), *self.flags, *(f"-I{d}" for d in self.include),
+               "-o", str(tmp),
                *[str(s) for s in self.sources() if s.suffix == ".cu"]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         out.with_suffix(".log").write_text(

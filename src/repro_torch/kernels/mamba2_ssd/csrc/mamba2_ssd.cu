@@ -37,14 +37,12 @@
 // lo_s): a strong decay makes |ca| reach hundreds within a chunk, and a
 // difference of float32 cumsums would lose the small exponents.
 //
-// The products (G, S, (G o L) x, C h) run on the tensor cores as 3xTF32:
-// each float32 operand is split into a TF32 hi and a TF32 lo (cvt.rna), and
-// mma.sync.m16n8k8 sums lo.hi + hi.lo + hi.hi in float32, which keeps
-// float32 accuracy (plain TF32 keeps about three digits, past the 2e-4
-// gate).  Each CTA is 8 warps, each owning 16 rows and 32 columns (4 n8
-// tiles) of the 64 x 64 tile.  Operands sit in shared memory as float32 rows of
-// 68 words (A, read row-major) or 72 words (B and transposed A), so each
-// fragment load hits 32 distinct banks.
+// The products (G, S, (G o L) x, C h) run on the tensor cores as 3xTF32
+// (../../csrc/tf32_tiles.cuh, shared with the RWKV6 scan).  Each CTA is
+// 8 warps, each owning 16 rows and 32 columns (4 n8 tiles) of the 64 x 64
+// tile.  Operands sit in shared memory as float32 rows of 68 words (A,
+// read row-major) or 72 words (B and transposed A), so each fragment load
+// hits 32 distinct banks.
 //
 // What bounds it on an H100.  Zamba2-2.7B's prefill (B 4, H 80, T 1024,
 // P = N = 64, C 64, float32 in) needs 6.749 GFLOP: the products over the
@@ -65,7 +63,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_tiles.cuh"
+
 namespace {
+
+using namespace tf32_tiles;
 
 constexpr int kTile = 64;     // rows and columns of a CTA's tile
 constexpr int kThreads = 256; // 8 warps: 16 rows x 32 columns each
@@ -86,89 +88,6 @@ struct Shape {
 
 constexpr int kVecX = 1, kVecB = 2, kVecC = 4, kVecS = 8, kVecG = 16;
 constexpr int kQuads = kTile * kTile / 4 / kThreads;  // 4 quads a thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x = hi + lo, both TF32 (hi rounded to nearest, lo the exact remainder
-// rounded again).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[j] (rows r0 .. r0 + 15, columns c0 + 8 j .. c0 + 8 j + 7) += A B
-// over k < 8 ksteps, in 3xTF32.  a_at(row, k) and b_at(k, col) read
-// shared memory.
-template <typename AAt, typename BAt>
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[kNT][4], int r0,
-                                           int c0, int ksteps, AAt a_at,
-                                           BAt b_at) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const int k0 = 8 * ks;
-    uint32_t ah[4], al[4];
-    split_tf32(a_at(r0 + g, k0 + t), ah[0], al[0]);
-    split_tf32(a_at(r0 + g + 8, k0 + t), ah[1], al[1]);
-    split_tf32(a_at(r0 + g, k0 + t + 4), ah[2], al[2]);
-    split_tf32(a_at(r0 + g + 8, k0 + t + 4), ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      uint32_t bh[2], bl[2];
-      split_tf32(b_at(k0 + t, c0 + 8 * j + g), bh[0], bl[0]);
-      split_tf32(b_at(k0 + t + 4, c0 + 8 * j + g), bh[1], bl[1]);
-      mma_tf32(acc[j], al, bh);
-      mma_tf32(acc[j], ah, bl);
-      mma_tf32(acc[j], ah, bh);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-}
-
-// Writes this warp's 16 x 32 piece of the tile: rows r < nr, columns
-// col < nw of dst (row stride ld), two columns a store where both lie in
-// the row and the rows are 8-byte aligned.
-__device__ __forceinline__ void store_tile(const float (&acc)[kNT][4], int r0,
-                                           int c0, float* dst, int64_t ld,
-                                           int nr, int nw) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool pairs =
-      ld % 2 == 0 && reinterpret_cast<uintptr_t>(dst) % 8 == 0;
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + g + 8 * half, col = c0 + 8 * j + 2 * t;
-      if (r >= nr || col >= nw) continue;
-      float* out = dst + r * ld + col;
-      if (pairs && col + 1 < nw)
-        *reinterpret_cast<float2*>(out) =
-            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
-      else {
-        out[0] = acc[j][2 * half];
-        if (col + 1 < nw) out[1] = acc[j][2 * half + 1];
-      }
-    }
-}
 
 // The chunk's inclusive cumsum of a_log, in float64 by a scan over two
 // warps, as float32 hi[s] + lo[s] for s < c.  Ends with a barrier.
@@ -194,37 +113,6 @@ __device__ void chunk_cumsum(const T* __restrict__ a0, int64_t at, int t0,
     lo[tid] = (float)(v - (double)h);
   }
   __syncthreads();
-}
-
-// Four consecutive elements as float32, the last `left` of which lie in
-// the row (none if left <= 0); one 16- (float) or 8-byte (bf16) load when
-// vec and the quad is whole.
-__device__ __forceinline__ float4 load_quad(const float* p, bool vec,
-                                            int left) {
-  if (vec && left >= 4) return *reinterpret_cast<const float4*>(p);
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (left > 0) v.x = p[0];
-  if (left > 1) v.y = p[1];
-  if (left > 2) v.z = p[2];
-  if (left > 3) v.w = p[3];
-  return v;
-}
-__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p, bool vec,
-                                            int left) {
-  if (vec && left >= 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (left > 0) v.x = __bfloat162float(p[0]);
-  if (left > 1) v.y = __bfloat162float(p[1]);
-  if (left > 2) v.z = __bfloat162float(p[2]);
-  if (left > 3) v.w = __bfloat162float(p[3]);
-  return v;
 }
 
 // Quad i of this thread in a 64 x 64 tile: row q / 16, columns 4 (q % 16).

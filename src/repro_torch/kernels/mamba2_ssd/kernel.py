@@ -28,7 +28,8 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from repro_torch.kernels._build import I64, INT, PTR, CudaLibrary, check
+from repro_torch.kernels._build import (I64, INT, PTR, SHARED_CSRC,
+                                        CudaLibrary, check)
 from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunk_parallel
 
 LIBRARY = CudaLibrary(
@@ -38,6 +39,7 @@ LIBRARY = CudaLibrary(
     # of x a (b, h, t) and of b c (b, t), dtype, stream
     {"mamba2_ssd_launch": (PTR,) * 9 + (INT,) * 6 + (I64,) * 10
      + (INT, PTR)},
+    include=(SHARED_CSRC,),
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -22,6 +22,20 @@ cumsums a strong decay (w_log = -exp(2 z)) puts this form further from
 the sequential oracle than the reference's gate of 2e-4 allows, as the
 reference's own ``test_rwkv6_chunked_matches_ref`` finds on some draws.
 The products stay float32.
+
+:func:`rwkv6_scan_chunk_parallel` takes the same arithmetic in the steps
+the CUDA kernel spreads over (chunk, head, batch row): each chunk's own
+state, the state passing over the chunks, and each chunk's output, whose
+pair weights come by secondary chunking.  The chunk is cut into leaves of
+:data:`LEAF` rows, whose pairs are taken in log space; the pairs of two
+leaves are taken level by level, in blocks of 2h rows (h = LEAF, 2 LEAF,
+...): for t in a block's upper half and s in its lower half, with e the
+lower half's last row, exp(We_t - W_s) = exp(We_t - W_e) exp(W_e - W_s),
+both factors <= 1, so the pairs are one product of a scaled r and a
+scaled k.  The exclusive cumsum is the inclusive one shifted by a row.  It
+writes o into a (B, T, H, V) buffer.  It is the plain version of that
+decomposition (the kernel wrapper's CPU route); ``rwkv6_scan_chunked``
+stays the plain version the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -93,3 +107,68 @@ def rwkv6_scan_chunked(
             k_hat[:, :, n].transpose(-1, -2), vc[:, :, n])
     o = o_intra + torch.stack(o_inter, dim=2)
     return o.reshape(b, h, t, dv)[:, :, :t_full], s
+
+
+LEAF = 8  # rows of A's diagonal sub-blocks; csrc/rwkv6_scan.cu's kLeaf
+
+
+def rwkv6_scan_chunk_parallel(
+    r: Tensor, k: Tensor, v: Tensor, w_log: Tensor, u: Tensor, *,
+    chunk: int = 32,
+) -> Tuple[Tensor, Tensor]:
+    """The RWKV6 scan from a zero state as the kernel decomposes it
+    (``csrc/rwkv6_scan.cu``); ``T % min(chunk, T) == 0``.  Returns o as the
+    (B, H, T, V) view of a (B, T, H, V) buffer, and the final state."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    c = min(chunk, t)
+    nc = t // c
+
+    def cshape(x, d):
+        return x.float().reshape(b, h, nc, c, d)
+
+    rc, kc, vc = cshape(r, dk), cshape(k, dk), cshape(v, dv)
+    (wh, wl), _ = split_cumsums(cshape(w_log, dk), dim=-2)
+    eh, el = (F.pad(x[..., :-1, :], (0, 0, 1, 0)) for x in (wh, wl))  # We
+
+    # 1. Per (b, h, chunk): the chunk's own state and its decay.
+    k_hat = kc * torch.exp((wh[..., -1:, :] - wh) + (wl[..., -1:, :] - wl))
+    s_own = torch.matmul(k_hat.transpose(-1, -2), vc)  # (B, H, nc, K, V)
+    decay = torch.exp(wh[..., -1, :] + wl[..., -1, :])  # (B, H, nc, K)
+    # 2. Per (b, h), in order: each chunk's incoming state.
+    state = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    incoming = []
+    for i in range(nc):
+        incoming.append(state)
+        state = decay[..., i, :, None] * state + s_own[:, :, i]
+    # 3. Per (b, h, chunk): A, then o = A v + (r e^We) S_in.
+    a = torch.zeros((b, h, nc, c, c), dtype=torch.float32, device=r.device)
+    for i0 in range(0, c, LEAF):  # the leaves, in log space
+        leaf = slice(i0, min(i0 + LEAF, c))
+        expo = torch.clamp(
+            (eh[..., leaf, None, :] - wh[..., None, leaf, :])
+            + (el[..., leaf, None, :] - wl[..., None, leaf, :]), max=0.0)
+        pairs = torch.einsum("...tk,...sk,...tsk->...ts", rc[..., leaf, :],
+                             kc[..., leaf, :], torch.exp(expo))
+        a[..., leaf, leaf] = torch.tril(pairs, diagonal=-1)
+    half = LEAF
+    while half < c:  # pairs of leaves, by the halves of blocks of 2 half
+        for base in range(0, c - half, 2 * half):
+            lower = slice(base, base + half)
+            upper = slice(base + half, min(base + 2 * half, c))
+            e = slice(base + half - 1, base + half)
+            r_b = rc[..., upper, :] * torch.exp(
+                (eh[..., upper, :] - wh[..., e, :])
+                + (el[..., upper, :] - wl[..., e, :]))
+            k_b = kc[..., lower, :] * torch.exp(
+                (wh[..., e, :] - wh[..., lower, :])
+                + (wl[..., e, :] - wl[..., lower, :]))
+            a[..., upper, lower] = torch.matmul(r_b, k_b.transpose(-1, -2))
+        half *= 2
+    bonus = torch.einsum("bhntk,hk,bhntk->bhnt", rc, u.float(), kc)
+    a = a + torch.diag_embed(bonus)
+    r_dec = rc * torch.exp(eh + el)
+    o = torch.matmul(a, vc) + torch.matmul(r_dec, torch.stack(incoming, dim=2))
+    out = torch.empty((b, t, h, dv), dtype=torch.float32, device=r.device)
+    out.view(b, nc, c, h, dv).copy_(o.permute(0, 2, 3, 1, 4))
+    return out.transpose(1, 2), state

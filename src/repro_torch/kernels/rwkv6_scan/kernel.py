@@ -5,15 +5,18 @@ package's Pallas kernel (``repro/kernels/rwkv6_scan/kernel.py``): r, k,
 w_log ``(B, H, T, K)``, v ``(B, H, T, V)``, u ``(H, K)``, from a zero
 state, ``T % min(chunk, T) == 0``; returns o ``(B, H, T, V)`` and the
 final state ``(B, H, K, V)``, both float32.  It launches
-``csrc/rwkv6_scan.cu``, whose header says what bounds the kernel.  The
-kernel reads r, k, v and w_log through their strides, so the model's
-``(B, T, H, K)`` tensors seen as ``(B, H, T, K)`` go in uncopied; their
-last dim must be contiguous.
+``csrc/rwkv6_scan.cu`` (three kernels: the chunks' own states, the state
+passing, the outputs, the last once per 64 channels of K; counted as one
+launch of the op), whose header says what bounds it.  The kernel reads r, k, v and w_log through their
+strides, so the model's ``(B, T, H, K)`` tensors seen as ``(B, H, T, K)``
+go in uncopied; their last dim must be contiguous.  o is written into a
+``(B, T, H, V)`` buffer and returned as its ``(B, H, T, V)`` view, so the
+model's transpose back is a view too.
 
-For tensors on the CPU the wrapper takes :func:`rwkv6_scan_chunked`, the
-plain version of the same chunked arithmetic; for tensors on a CUDA
-device it launches the kernel or raises.  ``rwkv6_scan_pallas.launches``
-counts its kernel launches.
+For tensors on the CPU the wrapper takes
+:func:`rwkv6_scan_chunk_parallel`, the plain version of the kernel's
+decomposition; for tensors on a CUDA device it launches the kernel or
+raises.  ``rwkv6_scan_pallas.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -24,28 +27,22 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from repro_torch.kernels._build import (I64, INT, PTR, SMEM_PER_BLOCK,
+from repro_torch.kernels._build import (I64, INT, PTR, SHARED_CSRC,
                                         CudaLibrary, check)
-from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunk_parallel
 
 LIBRARY = CudaLibrary(
     "rwkv6_scan",
     Path(__file__).resolve().parent / "csrc",
-    # r k v w u o s, b h t dk dv chunk, the (b, h, t) strides of r k v w,
-    # dtype, smem bytes, stream
-    {"rwkv6_scan_launch": (PTR,) * 7 + (INT,) * 6 + (I64,) * 12
-     + (INT,) * 2 + (PTR,)},
+    # r k v w u o s, scratch: states decay; b h t dk dv chunk, the (b, h, t)
+    # strides of r k v w, dtype, stream
+    {"rwkv6_scan_launch": (PTR,) * 9 + (INT,) * 6 + (I64,) * 12
+     + (INT, PTR)},
+    include=(SHARED_CSRC,),
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK = 64
-
-
-def smem_bytes(dk: int, dv: int, c: int) -> int:
-    """Dynamic shared memory of one block: the state, the chunk's r, k,
-    the two cumsums as hi and lo parts (rows padded by one float against
-    bank conflicts), v and the chunk's (C, C) weights."""
-    return 4 * (dk * dv + 6 * c * (dk + 1) + c * dv + c * c)
+MAX_CHUNK = 64  # a CTA's tile: chunk rows
 
 
 def check_inputs(r: Tensor, k: Tensor, v: Tensor, w_log: Tensor, u: Tensor,
@@ -87,9 +84,6 @@ def check_inputs(r: Tensor, k: Tensor, v: Tensor, w_log: Tensor, u: Tensor,
     if device.type == "cuda":
         if c > MAX_CHUNK:
             raise ValueError(f"chunk {c} above the kernel's {MAX_CHUNK}")
-        if smem_bytes(dk, dv, c) > SMEM_PER_BLOCK:
-            raise ValueError(f"K={dk}, V={dv}, chunk {c} need "
-                             f"{smem_bytes(dk, dv, c)} bytes of shared memory")
         for name, x in (("r", r), ("k", k), ("v", v), ("w_log", w_log)):
             if x.stride(-1) != 1:
                 raise ValueError(f"{name} must be contiguous in its last dim "
@@ -106,24 +100,29 @@ def rwkv6_scan_pallas(
     """
     check_inputs(r, k, v, w_log, u, chunk)
     if r.device.type == "cpu":
-        return rwkv6_scan_chunked(r, k, v, w_log, u, chunk=chunk)
+        return rwkv6_scan_chunk_parallel(r, k, v, w_log, u, chunk=chunk)
     b, h, t, dk = r.shape
     dv = v.shape[-1]
     c = min(chunk, t)
-    o = torch.empty((b, h, t, dv), dtype=torch.float32, device=r.device)
-    s = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    nc = t // c
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=r.device)
+
+    o, s = f32(b, t, h, dv), f32(b, h, dk, dv)
+    states, decay = f32(b, h, nc, dk, dv), f32(b, h, nc, dk)
     # (H, K): a few hundred values, read as contiguous float32
     uf = u.float().contiguous()
     err = LIBRARY.library().rwkv6_scan_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-        uf.data_ptr(), o.data_ptr(), s.data_ptr(), b, h, t, dk, dv, c,
+        uf.data_ptr(), o.data_ptr(), s.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), b, h, t, dk, dv, c,
         *(n for x in (r, k, v, w_log) for n in x.stride()[:3]),
-        _DTYPE_CODES[r.dtype], smem_bytes(dk, dv, c),
-        torch.cuda.current_stream(r.device).cuda_stream,
+        _DTYPE_CODES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream,
     )
     check(err, "rwkv6_scan_launch")
     rwkv6_scan_pallas.launches += 1
-    return o, s
+    return o.transpose(1, 2), s
 
 
 rwkv6_scan_pallas.launches = 0

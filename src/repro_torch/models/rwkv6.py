@@ -149,6 +149,9 @@ def time_mix(
 
     o, s_fin = rwkv6_scan(r, k, v, w_log, tm["u"].to(cdt), backend=backend,
                           chunk=cfg.scan_chunk)  # (B, H, T, hd)
+    # On "pallas" o is the view of a (B, T, H, hd) buffer: the cast keeps
+    # its strides, so the transpose is contiguous and the reshape after the
+    # norm copies nothing.
     o = o.to(cdt).transpose(1, 2)  # (B, T, H, hd)
     o = _group_norm(tm, o).reshape(b, t, d)
     out = L.linear(tm["wo"], o * g, cdt)

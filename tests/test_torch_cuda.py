@@ -391,6 +391,18 @@ SCAN_TOL = 2e-4
 RWKV_SHAPES = [(1, 2, 128, 32, 32, 32), (2, 4, 256, 64, 64, 64),
                (1, 1, 64, 16, 48, 16), (1, 2, 192, 64, 64, 64),
                (4, 40, 1024, 64, 64, 32)]
+# The kernel's edges (leaves of 8 rows, paired in levels): T = C = 16;
+# chunks of 16 over 3 and 5 chunks (V over two column tiles); chunks of 32
+# (K not a multiple of 16, nor of 4); chunks of 1, 1.5, 3 and 5 leaves;
+# V not a multiple of 4 (the pass and the state's staging element by
+# element); K over two tiles of 64 channels, whole (K = V = 128) and the
+# second partial (K = 72).
+RWKV_EDGE_SHAPES = [(1, 2, 16, 64, 64, 16), (2, 3, 48, 64, 64, 16),
+                    (1, 2, 80, 32, 96, 16), (2, 2, 96, 48, 40, 32),
+                    (1, 3, 96, 20, 24, 32), (1, 2, 64, 64, 64, 8),
+                    (2, 2, 48, 32, 32, 12), (1, 2, 72, 64, 64, 24),
+                    (1, 2, 80, 64, 64, 40), (1, 2, 48, 64, 30, 16),
+                    (1, 2, 64, 128, 128, 32), (1, 2, 48, 72, 40, 16)]
 SSD_SHAPES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
               (1, 1, 64, 64, 64, 64), (1, 3, 192, 32, 64, 32),
               (1, 2, 63, 80, 16, 64), (2, 3, 96, 24, 40, 32),
@@ -409,12 +421,16 @@ def _rwkv_inputs(device, b, h, t, dk, dv, dtype, strong, seed):
                                   0.5 * n(b, h, t, dv), w, 0.3 * n(h, dk))]
 
 
-@pytest.mark.parametrize("shape", RWKV_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", RWKV_SHAPES + RWKV_EDGE_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("strong", [False, True])
 def test_rwkv6_kernel_matches_its_plain_version(device, shape, dtype,
                                                 strong):
-    from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+    """Against both plain forms: the chunked form and the kernel's own
+    decomposition (``rwkv6_scan_chunk_parallel``); o is the view of a
+    (B, T, H, V) buffer."""
+    from repro_torch.kernels.rwkv6_scan.chunked import (
+        rwkv6_scan_chunk_parallel, rwkv6_scan_chunked)
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -425,10 +441,12 @@ def test_rwkv6_kernel_matches_its_plain_version(device, shape, dtype,
     torch.cuda.synchronize()
     assert rwkv6_scan_pallas.launches == before + 1
     assert o.dtype == torch.float32 and s.dtype == torch.float32
+    assert o.transpose(1, 2).is_contiguous()  # a (B, T, H, V) buffer
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
-    po, ps = rwkv6_scan_chunked(*args, chunk=chunk)
-    assert float((o - po).abs().max()) <= SCAN_TOL
-    assert float((s - ps).abs().max()) <= SCAN_TOL
+    for plain in (rwkv6_scan_chunked, rwkv6_scan_chunk_parallel):
+        po, ps = plain(*args, chunk=chunk)
+        assert float((o - po).abs().max()) <= SCAN_TOL, plain.__name__
+        assert float((s - ps).abs().max()) <= SCAN_TOL, plain.__name__
     if dtype == torch.float32 and dims[2] <= 256:
         ro, rs = rwkv6_scan_ref(*args)
         assert float((o - ro).abs().max()) <= SCAN_TOL

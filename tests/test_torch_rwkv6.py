@@ -168,3 +168,21 @@ def test_rwkv6_from_jax_rejects_a_wrong_tree(pair):
 def test_unknown_scan_backend_raises():
     with pytest.raises(ValueError, match="scan backend"):
         build_model(get_smoke_config(ARCH), device="cpu", scan_backend="bogus")
+
+
+def test_time_mix_output_is_the_same_on_the_view(pair):
+    """TimeMix with its scan on ``"pallas"`` (o the (B, H, T, V) view of a
+    (B, T, H, V) buffer, the CPU route) and on ``"chunked"`` (a contiguous
+    o): the same output and final wkv state."""
+    from repro_torch.models import rwkv6
+
+    cfg = get_smoke_config(ARCH)
+    tm = rwkv6.layer_params(pair[1]["layers"], 0)["tm"]
+    x = torch.randn(B, PROMPT, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    outs = {b: rwkv6.time_mix(tm, x, cfg, backend=b, return_state=True)
+            for b in ("pallas", "chunked")}
+    (out, s), (pout, ps) = outs["pallas"], outs["chunked"]
+    assert out.shape == (B, PROMPT, cfg.d_model) and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), pout.numpy(), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(s.numpy(), ps.numpy(), atol=TOL, rtol=TOL)

@@ -5,7 +5,8 @@ draws (``tests/test_kernels.py:205-223``: r, k, v ~ 0.5 N(0, 1), w_log =
 -exp(0.5 N(0, 1) - 2), u ~ 0.3 N(0, 1)), go through the reference's
 sequential ``ref``, its ``chunked`` form and its Pallas kernel in
 interpret mode, and through the port's ``ref``, ``chunked`` and
-``"pallas"`` route (on the CPU, the kernel wrapper's plain version).
+``"pallas"`` route (on the CPU, the kernel wrapper's plain version,
+``rwkv6_scan_chunk_parallel``: the kernel's decomposition).
 
 Tolerance: 2e-4, the reference's own gate for the kernel against the
 oracle (``tests/test_kernels.py:231-232``).  The forms sum in other
@@ -24,7 +25,9 @@ from repro.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked as j_chunked
 from repro.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas as j_pallas
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as j_ref
 from repro_torch.kernels.rwkv6_scan import ops
-from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+from repro_torch.kernels.rwkv6_scan.chunked import (LEAF,
+                                                    rwkv6_scan_chunk_parallel,
+                                                    rwkv6_scan_chunked)
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -129,3 +132,83 @@ def test_pallas_route_refuses_what_the_kernel_does_not_take():
     before = rwkv6_scan_pallas.launches
     rwkv6_scan_pallas(r, k, v, w, u, chunk=16)
     assert rwkv6_scan_pallas.launches == before  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chunk_parallel_matches_the_reference_forms(shape):
+    """The kernel's decomposition, called directly, at the reference
+    test's shapes against the reference's three forms."""
+    *dims, chunk = shape
+    args = [to_torch(a) for a in _inputs(shape[2] + shape[3], *dims)]
+    o, s = rwkv6_scan_chunk_parallel(*args, chunk=chunk)
+    assert o.transpose(1, 2).is_contiguous()  # a (B, T, H, V) buffer
+    for form, (jo, js) in _jax_outputs(shape).items():
+        np.testing.assert_allclose(np.asarray(jo), to_numpy(o), atol=TOL,
+                                   err_msg=f"o vs the reference's {form}")
+        np.testing.assert_allclose(np.asarray(js), to_numpy(s), atol=TOL,
+                                   err_msg=f"S vs the reference's {form}")
+
+
+def _jax_forms(args, chunk, strong):
+    """The reference's forms on float32 copies of the port's inputs (bf16
+    widened, as the kernel widens them).  On a strong decay only the
+    sequential oracle: the reference's chunked form takes float32 cumsums
+    (past the gate on such draws) and its Pallas body's exp(-W) overflows
+    once a chunk's summed decay passes about 88."""
+    jargs = [jnp.asarray(to_numpy(a.float())) for a in args]
+    forms = {"ref": j_ref(*jargs)}
+    if not strong:
+        forms["chunked"] = j_chunked(*jargs, chunk=chunk)
+        forms["pallas"] = j_pallas(*jargs, chunk=chunk, interpret=True)
+    return forms
+
+
+# (B, H, T, K, V, chunk): T = C, several chunks, and chunks of one leaf (of
+# LEAF rows), a leaf and a half, two, three, four, five and eight leaves;
+# K = 72 takes the kernel's 64-channel tiles twice, the second partial, with
+# V = 30 not a multiple of 4.
+PARALLEL_SHAPES = [(1, 2, 32, 16, 16, 32), (2, 3, 128, 32, 24, 32),
+                   (2, 2, 64, 8, 16, 8), (1, 2, 36, 8, 8, 12),
+                   (1, 2, 48, 16, 16, 16), (1, 2, 72, 16, 8, 24),
+                   (1, 2, 80, 16, 16, 40), (1, 2, 128, 32, 32, 64),
+                   (1, 2, 32, 72, 30, 16)]
+
+
+@pytest.mark.parametrize("shape", PARALLEL_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "model"])
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+def test_chunk_parallel_matches_the_reference(shape, dtype, layout, strong):
+    """The plain version of the kernel's decomposition against the
+    reference: float32 and bf16 inputs, in the contiguous layout and in the
+    models' ((B, T, H, .) seen as (B, H, T, .)), on the reference test's
+    decay and the strong one, at chunks on either side of the leaf and
+    level edges; and against the port's chunked form."""
+    *dims, chunk = shape
+    r, k, v, w, u = (to_torch(a) for a in _inputs(sum(shape), *dims,
+                                                  strong=strong))
+    r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+    if layout == "model":
+        r, k, v, w = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                      for x in (r, k, v, w))
+        assert not r.is_contiguous()
+    args = (r, k, v, w, u)
+    o, s = rwkv6_scan_chunk_parallel(*args, chunk=chunk)
+    assert o.dtype == torch.float32 and s.dtype == torch.float32
+    assert o.transpose(1, 2).is_contiguous()  # a (B, T, H, V) buffer
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    for form, (jo, js) in _jax_forms(args, chunk, strong).items():
+        np.testing.assert_allclose(np.asarray(jo), to_numpy(o), atol=TOL,
+                                   err_msg=f"o vs the reference's {form}")
+        np.testing.assert_allclose(np.asarray(js), to_numpy(s), atol=TOL,
+                                   err_msg=f"S vs the reference's {form}")
+    po, ps = rwkv6_scan_chunked(*args, chunk=chunk)
+    np.testing.assert_allclose(to_numpy(po), to_numpy(o), atol=TOL)
+    np.testing.assert_allclose(to_numpy(ps), to_numpy(s), atol=TOL)
+
+
+def test_leaves_cover_the_chunks_tested():
+    """The edge shapes above take one leaf, a partial second one, and two
+    to eight whole ones (one to three levels of products)."""
+    assert sorted({min(s[-1], s[2]) / LEAF for s in PARALLEL_SHAPES}) == [
+        1, 1.5, 2, 3, 4, 5, 8]
