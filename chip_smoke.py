@@ -11,17 +11,24 @@ and prints no result line):
 1. The card's name and power limit; TF32 off; the CUDA kernels built from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel;
    ``-Xptxas -v`` of each kernel (registers, shared memory, spills: the
-   tensor-core flash kernel and the SSD and RWKV6 kernels must spill
-   nothing) and the tensor-core instructions in ``cuobjdump -sass``:
-   ``HGMMA`` on bf16 (flash attention), ``IMMA`` on s8 (the int8 product
-   and the fused int8 convolution), ``HMMA`` on TF32 (the two scans).
+   reproject-match kernels, the tensor-core flash kernel and the SSD and
+   RWKV6 kernels must spill nothing) and the tensor-core instructions in
+   ``cuobjdump -sass``: ``HGMMA`` on bf16 (flash attention), ``IMMA`` on
+   s8 (the int8 product and the fused int8 convolution), ``HMMA`` on TF32
+   (the two scans).
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
-   cases: diff and coverage within 1e-5, bbox within 1e-3, the three
-   launches bitwise equal, the fused rows equal to the thresholded scores.
+   cases (N = 1, 7, 13, 25, 193; P = 2, 5, 32; 144x144 and 256x256
+   frames): diff and coverage within 1e-5, bbox within 1e-3, the three
+   launches bitwise equal to each other and to the plain version in the
+   kernel's summation order (``warp_order.py``, bool rows included), the
+   fused rows equal to the thresholded scores.
 3. Kernel and plain-version times (CUDA graphs of many launches, CUDA
-   events) beside the least time the card could take.
+   events) beside the least time the card could take and the launch floor
+   (a one-element elementwise launch timed the same way); the three
+   launches at a scale shape (512x512 frame, N = 3072, not the main path);
+   each wrapper call must be one device launch (``torch.profiler``).
 4. EPIC's main path at the default full width (``EPICConfig()``: 128x128
    frames, patch 16, capacity 192, window 32) with seeded random depth and
    HIR networks, 96 synthetic frames ingested in chunks of 8 through
@@ -31,7 +38,9 @@ and prints no result line):
    track, which loads the match path.  Each run must launch its kernel,
    keep its state on the card, and agree with the same run on ``"ref"``
    (counters exact; a differing decision must be traced to a score within
-   1e-5 of its threshold).
+   1e-5 of its threshold).  One more session of each run under
+   ``torch.profiler`` gives its device busy time and device launches per
+   processed frame.
 5. The flash-attention kernels against their plain version on the card,
    at the main path's shape (q ``(4, 32, 1024, 64)``, kv heads 4, causal)
    in bf16 (tensor cores) and float32 (CUDA cores) and at edge shapes (S =
@@ -268,6 +277,8 @@ def phase_build(torch) -> None:
                                        "spill", "wgmma")):
                 line = line.strip().replace("ptxas info    : ", "")
                 print(f"    {path.name.rsplit('_', 1)[0]}: {line[:160]}")
+    check_no_spills(paths[0], "rm_", 4)
+    print("[1] reproject_match: 4 rm_* kernels, 0 spills")
     for lib, kernel, count, pattern in (
             (fa_lib, "fa_wgmma_kernel", 2, r"HGMMA\.[\w.]*BF16"),
             (i8_lib, None, 0, r"IG?MMA\.[\w.]*S8"),
@@ -275,6 +286,23 @@ def phase_build(torch) -> None:
             (rwkv_lib, "rwkv_", 14, r"HG?MMA\.[\w.]*TF32")):
         check_tensor_core_build(paths[libs.index(lib)], kernel, count,
                                 pattern)
+
+
+def check_no_spills(path, kernel, count) -> None:
+    """The library at ``path`` has ``count`` kernels whose (mangled) name
+    holds ``kernel``, and none of them spills (its ``-Xptxas -v`` log)."""
+    import re
+
+    name = path.name.rsplit("_", 1)[0]
+    log = path.with_suffix(".log").read_text()
+    blocks = [b for b in log.split("Compiling entry function '")[1:]
+              if kernel in b.split("'")[0]]
+    _need(len(blocks) == count, f"{len(blocks)} {kernel} kernels in "
+          f"the ptxas log of {name}, not {count}")
+    for block in blocks:
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
+        _need(spills and all(n == "0" for n in spills),
+              f"a {kernel} kernel spills: {block[:300]}")
 
 
 def check_tensor_core_build(path, kernel, count, pattern) -> None:
@@ -288,15 +316,7 @@ def check_tensor_core_build(path, kernel, count, pattern) -> None:
 
     name = path.name.rsplit("_", 1)[0]
     if kernel is not None:
-        log = path.with_suffix(".log").read_text()
-        blocks = [b for b in log.split("Compiling entry function '")[1:]
-                  if kernel in b.split("'")[0]]
-        _need(len(blocks) == count, f"{len(blocks)} {kernel} kernels in "
-              f"the ptxas log of {name}, not {count}")
-        for block in blocks:
-            spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
-            _need(spills and all(n == "0" for n in spills),
-                  f"a {kernel} kernel spills: {block[:300]}")
+        check_no_spills(path, kernel, count)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
@@ -388,8 +408,13 @@ def check_kernels(torch, args, intr, window, label):
     from repro_torch.kernels.reproject_match.kernel import (
         reproject_match_pallas, reproject_match_pallas_tiled)
     from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+    from repro_torch.kernels.reproject_match.warp_order import (
+        reproject_match_fused_warp_order)
 
     plain = reproject_match_ref(*args, intr, window)
+    warp = reproject_match_fused_warp_order(
+        *args, intr, window=window, tau=TAU, o_min=O_MIN, c_min=C_MIN
+    )
     a = reproject_match_pallas(*args, intr, window=window)
     b = reproject_match_pallas_tiled(*args, intr, window=window)
     fd, fc, fb, pair, ovok = reproject_match_fused(
@@ -399,6 +424,9 @@ def check_kernels(torch, args, intr, window, label):
     for x, y, z in zip(a, b, (fd, fc, fb)):
         _need(torch.equal(x, y) and torch.equal(x, z),
               f"{label}: the three launches differ")
+    for x, y in zip((fd, fc, fb, pair, ovok), warp):
+        _need(torch.equal(x, y), f"{label}: the kernel differs from the "
+              "plain version in its summation order")
     errs = [float((x - y).abs().max()) if x.numel() else 0.0
             for x, y in zip(a, plain)]
     _need(errs[0] <= SCORE_TOL and errs[1] <= SCORE_TOL
@@ -428,8 +456,8 @@ def check_kernels(torch, args, intr, window, label):
     print(f"[2] {label}: N={args[0].shape[0]} P={p} "
           f"frame={tuple(frame.shape[:2])} window={window} "
           f"max|err| diff={errs[0]:.3g} cov={errs[1]:.3g} bbox={errs[2]:.3g}"
-          f" matches={int(pair.sum())} near-threshold flips="
-          f"{int(flips.sum())}")
+          f" (bitwise the kernel's order) matches={int(pair.sum())} "
+          f"near-threshold flips={int(flips.sum())}")
     return max(errs)
 
 
@@ -442,9 +470,14 @@ def phase_kernels(torch, device):
     errs = {"reproject_match_pallas": dense, "reproject_match_fused": dense,
             "reproject_match_pallas_tiled": check_kernels(
                 torch, args, intr, 32, "sparse K=24")}
-    for n in (1, 7, 13):
+    for n in (1, 7, 13, 25, 193):
         args, intr = make_inputs(torch, device, n, 16, 128, n)
         check_kernels(torch, args, intr, 32, f"N={n}")
+    for n, p in ((25, 2), (13, 5)):
+        args, intr = make_inputs(torch, device, n, p, 128, n + p)
+        check_kernels(torch, args, intr, 16, f"patch {p}")
+    args, intr = make_inputs(torch, device, 25, 16, 144, 8)
+    check_kernels(torch, args, intr, 32, "144x144 frame (M=81)")
     args, intr = make_inputs(torch, device, 64, 16, 128, 5)
     check_kernels(torch, args, intr, 64, "window 64")
     args, intr = make_inputs(torch, device, 16, 16, 256, 6)
@@ -502,6 +535,19 @@ def device_profile(torch, fn):
             sum(e.count for e in rows), rows)
 
 
+def device_launches_per_call(torch, fn, calls=5, tries=3):
+    """``(device kernels per fn(), retakes)`` under ``torch.profiler``, over
+    ``calls`` calls.  A trace that recorded no device event at all is taken
+    again, up to ``tries`` times; ``retakes`` counts those, for the output
+    to show."""
+    for retakes in range(tries):
+        launches = device_profile(
+            torch, lambda: [fn() for _ in range(calls)])[1]
+        if launches:
+            break
+    return launches / calls, retakes
+
+
 def bound(args, fused: bool):
     """Least time on the card: ``(ms, "bytes" | "operations")``."""
     rgb, depth, origin, t_rel, frame = args
@@ -517,39 +563,75 @@ def bound(args, fused: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_times(torch, device):
+RM_SHAPES = {  # wrapper -> entries at the main path's shapes
+    "reproject_match_pallas": 192,
+    "reproject_match_pallas_tiled": 24,  # the sparse path's K
+    "reproject_match_fused": 192,
+}
+# Scale, not the main path: a 512x512 frame with EPICConfig()'s ratio of
+# capacity to patches (192 / 64), P = 16, window 32.
+RM_SCALE = (3072, 16, 512)
+
+
+def rm_calls(torch, args, intr, window=32):
+    """``{wrapper: (kernel call, plain call)}`` on the same inputs."""
     from repro_torch.kernels.reproject_match import fused, kernel, ref
 
+    def plain():
+        ref.reproject_match_ref(*args, intr, window)
+
+    return {
+        "reproject_match_pallas": (
+            lambda: kernel.reproject_match_pallas(*args, intr, window=window),
+            plain),
+        "reproject_match_pallas_tiled": (
+            lambda: kernel.reproject_match_pallas_tiled(*args, intr,
+                                                        window=window),
+            plain),
+        "reproject_match_fused": (
+            lambda: fused.reproject_match_fused(
+                *args, intr, window=window, tau=TAU, o_min=O_MIN,
+                c_min=C_MIN),
+            lambda: fused.reproject_match_fused_ref(
+                *args, intr, window=window, tau=TAU, o_min=O_MIN,
+                c_min=C_MIN)),
+    }
+
+
+def launch_floor_ms(torch, device):
+    """A one-element elementwise launch in CUDA-graph replay: the least a
+    launch costs in ``device_ms``."""
+    x = torch.zeros(1, device=device)
+    return device_ms(torch, lambda: x.add_(1.0))
+
+
+def phase_times(torch, device):
     times = {}
-    for name, n in (("reproject_match_pallas", 192),
-                    ("reproject_match_pallas_tiled", 24),
-                    ("reproject_match_fused", 192)):
+    floor_ms = launch_floor_ms(torch, device)
+    print(f"[3] launch floor (one-element add_, graph replay): "
+          f"{floor_ms * 1e3:.3f} us")
+    for name, n in RM_SHAPES.items():
         args, intr = make_inputs(torch, device, n, 16, 128, SEED)
-        if name == "reproject_match_fused":
-            def k_fn():
-                fused.reproject_match_fused(*args, intr, window=32, tau=TAU,
-                                            o_min=O_MIN, c_min=C_MIN)
-
-            def p_fn():
-                fused.reproject_match_fused_ref(*args, intr, window=32,
-                                                tau=TAU, o_min=O_MIN,
-                                                c_min=C_MIN)
-        else:
-            wrapper = getattr(kernel, name)
-
-            def k_fn():
-                wrapper(*args, intr, window=32)
-
-            def p_fn():
-                ref.reproject_match_ref(*args, intr, 32)
-
+        k_fn, p_fn = rm_calls(torch, args, intr)[name]
         ms, plain_ms = device_ms(torch, k_fn), device_ms(torch, p_fn)
         bound_ms, bound_by = bound(args, name == "reproject_match_fused")
+        launches, retakes = device_launches_per_call(torch, k_fn)
+        _need(launches == 1, f"{name}: {launches} device launches a call")
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
-        print(f"[3] {name}: N={n} kernel {ms * 1e3:.2f} us, plain "
+        print(f"[3] {name}: N={n} kernel {ms * 1e3:.3f} us "
+              f"({ms / floor_ms:.2f}x the launch floor), plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
-              f"({bound_by})")
+              f"({bound_by}), {launches:g} device launch a call "
+              f"(empty traces retaken: {retakes})")
+    n, p, hw = RM_SCALE
+    args, intr = make_inputs(torch, device, n, p, hw, SEED)
+    for name, (k_fn, _) in rm_calls(torch, args, intr).items():
+        ms = device_ms(torch, k_fn, per_graph=20)
+        bound_ms, bound_by = bound(args, name == "reproject_match_fused")
+        print(f"[3] scale, not the main path: {name} N={n} P={p} "
+              f"{hw}x{hw} frame: kernel {ms * 1e3:.3f} us, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}; {ms / bound_ms:.2f}x)")
     return times
 
 
@@ -714,6 +796,8 @@ def phase_main_path(torch, device, n_frames=N_FRAMES):
         counts = {k: w.launches for k, w in wrappers.items()}
         launches.setdefault(name, counts[name])
         processed = int(stats.processed.sum())
+        busy_us, dev_launches, _ = device_profile(
+            torch, lambda: run_session(torch, comp, run_stream, device))
         _need(counts[name] > 0, f"{run}: {name} was never launched")
         _need(all(t.device == device for t in state_leaves(state)),
               f"{run}: state left the card")
@@ -750,6 +834,10 @@ def phase_main_path(torch, device, n_frames=N_FRAMES):
             f"{int(stats.n_full_checks.sum())}, prefilter overflow "
             f"{int(stats.n_prefilter_overflow.sum())}, launches {counts} "
             f"({counts[name] / max(processed, 1):.2f} per processed frame); "
+            f"profiled session: device busy {busy_us / n_frames:.1f} us and "
+            f"{dev_launches / n_frames:.1f} device launches per frame, "
+            f"{busy_us / max(processed, 1):.1f} us and "
+            f"{dev_launches / max(processed, 1):.1f} per processed frame; "
             f"{verdict}"
         )
     return launches

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the int8 depth stage and the two scans (Mamba-2 SSD, RWKV6), with
-the paths that run them, on one CUDA card.
+"""Time the reproject-match launches, the int8 depth stage and the two scans
+(Mamba-2 SSD, RWKV6), with the paths that run them, on one CUDA card.
 
     python3 scripts/time_port_paths.py [--src DIR] [--label NAME]
-        [--paths int8,ssd,rwkv] [--prefills N]
+        [--paths rm,int8,ssd,rwkv] [--prefills N]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that two trees, say a parent commit unpacked beside this one and this
@@ -14,9 +14,18 @@ scan kernels has: ``int8_matmul_pallas``, ``forward_int8`` on
 ``mamba2_ssd_pallas``, ``rwkv6_scan_pallas``, ``build_model`` /
 ``jit_prefill``.  The helpers (inputs, ``device_ms``, ``device_profile``)
 come from this checkout's ``chip_smoke.py``.  ``--paths`` picks what is
-timed (all three by default).
+timed (int8, ssd and rwkv by default).
 Prints the card's name and power limit, then one JSON line:
 
+* ``launch_floor_us``: a one-element elementwise launch (``add_``) in
+  CUDA-graph replay between CUDA events, the least a launch costs there;
+* ``rm_{pallas,tiled,fused}_us``: the three reproject-match wrappers at
+  the main path's shapes (``chip_smoke.make_inputs``: N = 192, K = 24 for
+  the tiled launch, P = 16, 128x128 frame, window 32), in CUDA-graph
+  replay (``rm_pallas_k24_us``: the per-entry launch on the tiled launch's
+  inputs, K = 24, timed right after it); ``..._scale_us``: the same at
+  N = 3072 and a 512x512 frame (scale, not the main path); ``..._launches``: device kernels of one call
+  at the main shape under ``torch.profiler``;
 * ``i8_products_us``: ``int8_matmul_pallas`` at the depth network's 8
   shapes of one frame (random int8 operands), CUDA-graph replay between
   CUDA events (``chip_smoke.device_ms``), summed;
@@ -131,6 +140,26 @@ def main() -> int:
         del params, model
         torch.cuda.empty_cache()
 
+    if "rm" in paths:
+        out["launch_floor_us"] = smoke.launch_floor_ms(torch, device) * 1e3
+        for label, (n_main, p, hw), per_graph in (
+                ("", (None, 16, 128), 50), ("_scale", smoke.RM_SCALE, 20)):
+            for name, short in (("reproject_match_pallas", "pallas"),
+                                ("reproject_match_pallas_tiled", "tiled"),
+                                ("reproject_match_fused", "fused")):
+                n = n_main or smoke.RM_SHAPES[name]
+                rm_args, intr = smoke.make_inputs(torch, device, n, p, hw,
+                                                  smoke.SEED)
+                call = smoke.rm_calls(torch, rm_args, intr)[name][0]
+                out[f"rm_{short}{label}_us"] = smoke.device_ms(
+                    torch, call, per_graph=per_graph) * 1e3
+                if not label:
+                    out[f"rm_{short}_launches"] = smoke.device_profile(
+                        torch, call)[1]
+                if short == "tiled" and not label:  # on the same inputs
+                    out["rm_pallas_k24_us"] = smoke.device_ms(
+                        torch, smoke.rm_calls(torch, rm_args, intr)[
+                            "reproject_match_pallas"][0]) * 1e3
     if "int8" in paths:
         g = torch.Generator(device=device).manual_seed(smoke.SEED)
         products = []

@@ -39,10 +39,6 @@ class Intrinsics(NamedTuple):
         t = torch.tensor([f, cx, cy], dtype=torch.float32, device=device)
         return Intrinsics(t[0], t[1], t[2])
 
-    def vector(self) -> Tensor:
-        """``(3,)`` ``[f, cx, cy]``, the layout the kernel reads."""
-        return torch.stack([self.f, self.cx, self.cy])
-
 
 def pose_from_rt(rot: Tensor, trans: Tensor) -> Tensor:
     """``(..., 4, 4)`` pose from ``(..., 3, 3)`` rotation and ``(..., 3)``

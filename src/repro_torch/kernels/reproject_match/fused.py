@@ -1,18 +1,20 @@
 """Fused TSRC match on the card: warp + match + thresholds + update mask.
 
-Port of ``repro/kernels/reproject_match/fused.py``.  One CTA per DC-buffer
-entry emits, in one pass, the ``[diff, coverage, bbox]`` row (bitwise the
-``"pallas"`` launch's: both run the same device function) plus two rows
-over the frame's implicit row-major ``(H/P) x (W/P)`` patch grid:
+Port of ``repro/kernels/reproject_match/fused.py``.  One warp (one CTA)
+per DC-buffer entry emits, in one pass, the
+``[diff, coverage, bbox]`` row (bitwise the ``"pallas"`` launch's: both
+run the same device function) plus two rows over the frame's implicit
+row-major ``(H/P) x (W/P)`` patch grid:
 
   * the **overlap row**: bbox overlap fraction >= ``o_min`` per patch,
   * the **update-mask row**: overlap AND ``diff <= tau`` AND
     ``coverage >= c_min``.
 
-The kernel writes both rows as ``bool`` directly.  Registration: the
-standard-contract backend registers as ``"fused"`` and carries the
-whole-step entry point as its ``fused_match`` attribute, which
-``tsrc_step`` reads with ``getattr``.  The entry axis is any length, so
+The kernel writes both rows as ``bool`` directly, four to a 32-bit store
+where a row is 4-byte aligned.  Registration: the standard-contract
+backend registers as ``"fused"`` and carries the whole-step entry point
+as its ``fused_match`` attribute, which ``tsrc_step`` reads with
+``getattr``.  The entry axis is any length, so
 the sparse prefilter feeds it the gathered ``(K, ...)`` candidate slabs.
 """
 
@@ -110,12 +112,13 @@ def reproject_match_fused(
     match = torch.empty((n, m), dtype=torch.bool, device=device)
     ovok = torch.empty((n, m), dtype=torch.bool, device=device)
     if n:
-        _keep, ptrs = launch_pointers(
+        ptrs = launch_pointers(
             entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
         )
         err = LIBRARY.library().rm_fused_launch(
             *ptrs, out.data_ptr(), match.data_ptr(), ovok.data_ptr(),
-            n, p, window, h, w, tau, o_min, c_min, stream_of(device),
+            n, p, window, h, w, tau, o_min, c_min,
+            stream_of(device),
         )
         check(err, "rm_fused_launch")
         reproject_match_fused.launches += 1

@@ -2,14 +2,17 @@
 
 ``reproject_match_pallas`` and ``reproject_match_pallas_tiled`` keep the
 names and the op contract of the JAX package's Pallas kernels
-(``repro/kernels/reproject_match/kernel.py``); both launch
-``csrc/reproject_match.cu``, one CTA per entry or one CTA per ``TILE_N``
-entries, and return bitwise the same scores (one shared device function).
-The source's header says what bounds the kernel and how it is built.
+(``repro/kernels/reproject_match/kernel.py``); both make the same launch of
+``csrc/reproject_match.cu``, one warp and one CTA per entry (CTAs of the
+Pallas grid's 8 entries a step were slower on the card), so they return
+bitwise the same scores.  The source's header says what bounds the
+kernel and how it is built; ``warp_order.py`` is the plain version in the
+kernel's summation order, which the kernel equals bitwise.
 
 Each wrapper takes the plain version (``ref.py``) for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; it raises on
-anything else.  ``<wrapper>.launches`` counts its kernel launches.
+anything else.  ``<wrapper>.launches`` counts its kernel launches; each
+call launches one device kernel and nothing else.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.core import geometry as geo
-from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check
+from repro_torch.kernels._build import FLOAT, I64, INT, PTR, CudaLibrary, check
 from repro_torch.kernels.reproject_match.ref import reproject_match_ref
 
 # --fmad=false: see the precision note in csrc/reproject_match.cu.
@@ -29,20 +32,17 @@ LIBRARY = CudaLibrary(
     "reproject_match",
     Path(__file__).resolve().parent / "csrc",
     {
-        # intr rgb depth origin trel frame out, n patch window h w, stream
-        "rm_pallas_launch": (PTR,) * 7 + (INT,) * 5 + (PTR,),
-        # ... out, n tile_n patch window h w, stream
-        "rm_tiled_launch": (PTR,) * 7 + (INT,) * 6 + (PTR,),
+        # f cx cy rgb depth origin trel frame out, n patch window h w, stream
+        "rm_scores_launch": (PTR,) * 9 + (INT,) * 5 + (PTR,),
         # ... out match ovok, n patch window h w, tau o_min c_min, stream
-        "rm_fused_launch": (PTR,) * 9 + (INT,) * 5 + (FLOAT,) * 3 + (PTR,),
+        "rm_fused_launch": (PTR,) * 11 + (INT,) * 5 + (FLOAT,) * 3 + (PTR,),
+        # a b q, n, stream: the kernel's division, for the card's tests
+        "rm_divide_launch": (PTR,) * 3 + (I64,) + (PTR,),
     },
     flags=("--fmad=false",),
 )
 
-# Entries per CTA of the tiled launch (the Pallas kernel's entries per grid
-# step).
-TILE_N = 8
-MAX_PATCH = 32  # one thread per pixel: at most 1024 threads a block
+MAX_PATCH = 32  # lane j of the warp holds column j and row j's quotient
 
 
 def check_inputs(
@@ -108,13 +108,13 @@ def check_inputs(
 
 
 def launch_pointers(entry_rgb, entry_depth, entry_origin, t_rel, frame, intr):
-    """``(intr_vec, pointers)``: keep ``intr_vec`` alive until the launch."""
-    intr_vec = intr.vector()
-    ptrs = [
+    """Device pointers of ``f``, ``cx``, ``cy`` (each read through its own
+    pointer, so no stacked copy is launched) and of the five inputs."""
+    return [
         t.data_ptr()
-        for t in (intr_vec, entry_rgb, entry_depth, entry_origin, t_rel, frame)
+        for t in (intr.f, intr.cx, intr.cy, entry_rgb, entry_depth,
+                  entry_origin, t_rel, frame)
     ]
-    return intr_vec, ptrs
 
 
 def stream_of(device: torch.device) -> int:
@@ -124,6 +124,30 @@ def stream_of(device: torch.device) -> int:
 def split_rows(out: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Unpack ``(N, 8)`` rows ``[diff, coverage, vmin, umin, vmax, umax, 0, 0]``."""
     return out[:, 0], out[:, 1], out[:, 2:6]
+
+
+def launch_scores(wrapper, entry_rgb, entry_depth, entry_origin, t_rel,
+                  frame, intr, window) -> Tuple[Tensor, Tensor, Tensor]:
+    """The scores of both wrappers: the plain version on the CPU, else one
+    ``rm_scores_launch`` counted on ``wrapper.launches``."""
+    n, p, h, w, device = check_inputs(
+        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
+    )
+    if device.type == "cpu":
+        return reproject_match_ref(
+            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
+        )
+    out = torch.empty((n, 8), dtype=torch.float32, device=device)
+    if n:
+        ptrs = launch_pointers(
+            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
+        )
+        err = LIBRARY.library().rm_scores_launch(
+            *ptrs, out.data_ptr(), n, p, window, h, w, stream_of(device)
+        )
+        check(err, "rm_scores_launch")
+        wrapper.launches += 1
+    return split_rows(out)
 
 
 def reproject_match_pallas(
@@ -136,29 +160,14 @@ def reproject_match_pallas(
     *,
     window: int = 64,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Reproject-match, one CTA per entry.  Returns diff, coverage, bbox.
+    """Reproject-match, one warp and one CTA per entry.  Returns diff,
+    coverage, bbox.
 
     Replaces ``repro/kernels/reproject_match/kernel.py ::
     reproject_match_pallas``; same contract as :func:`reproject_match_ref`.
     """
-    n, p, h, w, device = check_inputs(
-        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
-    )
-    if device.type == "cpu":
-        return reproject_match_ref(
-            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
-        )
-    out = torch.empty((n, 8), dtype=torch.float32, device=device)
-    if n:
-        _keep, ptrs = launch_pointers(
-            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
-        )
-        err = LIBRARY.library().rm_pallas_launch(
-            *ptrs, out.data_ptr(), n, p, window, h, w, stream_of(device)
-        )
-        check(err, "rm_pallas_launch")
-        reproject_match_pallas.launches += 1
-    return split_rows(out)
+    return launch_scores(reproject_match_pallas, entry_rgb, entry_depth,
+                         entry_origin, t_rel, frame, intr, window)
 
 
 reproject_match_pallas.launches = 0
@@ -174,31 +183,15 @@ def reproject_match_pallas_tiled(
     *,
     window: int = 64,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Reproject-match, ``TILE_N`` entries per CTA.
+    """Reproject-match for the sparse path's few candidates: the same
+    launch as :func:`reproject_match_pallas`, counted apart.
 
     Replaces ``repro/kernels/reproject_match/kernel.py ::
-    reproject_match_pallas_tiled``.  The ragged tail is masked by index
-    inside the kernel: no padding entries are made.
+    reproject_match_pallas_tiled``.
     """
-    n, p, h, w, device = check_inputs(
-        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
-    )
-    if device.type == "cpu":
-        return reproject_match_ref(
-            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
-        )
-    out = torch.empty((n, 8), dtype=torch.float32, device=device)
-    if n:
-        _keep, ptrs = launch_pointers(
-            entry_rgb, entry_depth, entry_origin, t_rel, frame, intr
-        )
-        err = LIBRARY.library().rm_tiled_launch(
-            *ptrs, out.data_ptr(), n, TILE_N, p, window, h, w,
-            stream_of(device),
-        )
-        check(err, "rm_tiled_launch")
-        reproject_match_pallas_tiled.launches += 1
-    return split_rows(out)
+    return launch_scores(reproject_match_pallas_tiled, entry_rgb,
+                         entry_depth, entry_origin, t_rel, frame, intr,
+                         window)
 
 
 reproject_match_pallas_tiled.launches = 0

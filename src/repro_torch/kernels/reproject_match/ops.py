@@ -5,10 +5,11 @@ JAX package's keys:
 
 ``"ref"`` — the plain PyTorch version (``ref.py``), an explicit choice.
 
-``"pallas"`` — the CUDA kernel, one CTA per entry (``kernel.py``).
+``"pallas"`` — the CUDA kernel, one warp and one CTA per entry
+(``kernel.py``).
 
-``"pallas_tiled"`` — the same kernel, ``TILE_N`` entries per CTA; the
-layout meant for the small candidate counts of the sparse TRD.
+``"pallas_tiled"`` — the same launch under the JAX package's key for the
+small candidate counts of the sparse TRD.
 
 ``"fused"`` (registered in ``fused.py``) — the same scores plus the
 overlap and update-mask rows in one pass; the port's default.

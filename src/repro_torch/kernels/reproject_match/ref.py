@@ -43,7 +43,7 @@ def window_origin(bbox: Tensor, window: int, frame_hw: Tuple[int, int]) -> Tenso
     return torch.stack([oy, ox], dim=-1)
 
 
-def reproject_match_ref(
+def entry_pixels(
     entry_rgb: Tensor,  # (N, P, P, 3)
     entry_depth: Tensor,  # (N, P, P)
     entry_origin: Tensor,  # (N, 2) row, col
@@ -51,8 +51,13 @@ def reproject_match_ref(
     frame: Tensor,  # (H, W, 3)
     intr: geo.Intrinsics,
     window: int,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns ``diff (N,)``, ``coverage (N,)``, ``bbox (N, 4)``."""
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The op's per-pixel terms, before any reduction over pixels.
+
+    Returns ``absdiff (N, P, P, 3)`` (|sampled - entry| per channel),
+    ``valid (N, P, P)`` (in front and inside the window), ``bbox (N, 4)``
+    and ``bbox_valid (N,)`` (all four corners in front).
+    """
     p = entry_rgb.shape[1]
     h, w = frame.shape[0], frame.shape[1]
 
@@ -95,10 +100,25 @@ def reproject_match_ref(
     w10 = ((1 - du) * dv)[..., None]
     w11 = (du * dv)[..., None]
     sampled = p00 * w00 + p01 * w01 + p10 * w10 + p11 * w11
+    return (sampled - entry_rgb).abs(), in_front & in_win, bbox, bbox_valid
 
-    valid = in_front & in_win
+
+def reproject_match_ref(
+    entry_rgb: Tensor,  # (N, P, P, 3)
+    entry_depth: Tensor,  # (N, P, P)
+    entry_origin: Tensor,  # (N, 2) row, col
+    t_rel: Tensor,  # (N, 4, 4) source -> current camera
+    frame: Tensor,  # (H, W, 3)
+    intr: geo.Intrinsics,
+    window: int,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns ``diff (N,)``, ``coverage (N,)``, ``bbox (N, 4)``."""
+    p = entry_rgb.shape[1]
+    absdiff, valid, bbox, bbox_valid = entry_pixels(
+        entry_rgb, entry_depth, entry_origin, t_rel, frame, intr, window
+    )
     nvalid = valid.sum(dim=(1, 2))
-    absdiff = (sampled - entry_rgb).abs().mean(dim=-1)  # (N, P, P)
+    absdiff = absdiff.mean(dim=-1)  # (N, P, P)
     total = torch.where(valid, absdiff, torch.zeros_like(absdiff)).sum((1, 2))
     diff = total / nvalid.clamp_min(1)
     diff = torch.where(nvalid > 0, diff, torch.ones_like(diff))

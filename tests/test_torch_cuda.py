@@ -19,6 +19,9 @@ from repro_torch.kernels.reproject_match.kernel import (
     reproject_match_pallas_tiled,
 )
 from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+from repro_torch.kernels.reproject_match.warp_order import (
+    reproject_match_fused_warp_order,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +84,99 @@ def test_launches_agree_with_each_other_and_the_plain_version(
                                  reproject_match_pallas_tiled,
                                  reproject_match_fused)] == [
         k + 1 for k in counts]
+
+
+# The warp per entry at its edges: N ragged against the Pallas grid's 8
+# entries a step, P^2 below 32 (idle lanes) up to P = 32 (32 pixels a lane);
+# 144x144 frames give M = 81 (rows not 4-byte aligned), 256x256 larger M.
+RM_WARP_CASES = (
+    [(n, p, 128) for n in (1, 7, 13, 24, 25, 192, 193)
+     for p in (2, 3, 5, 8, 16, 32)]
+    + [(25, 16, 144), (193, 16, 144), (7, 3, 144), (13, 5, 144),
+       (24, 16, 256), (193, 32, 256), (25, 2, 256)]
+)
+
+
+@pytest.mark.parametrize("n,p,hw", RM_WARP_CASES, ids=str)
+def test_launches_equal_the_warp_order_plain_version_bitwise(device, n, p,
+                                                             hw):
+    args, intr = _inputs(device, n, p, hw, n * 31 + p + hw)
+    kw = dict(tau=0.34, o_min=0.5, c_min=0.6)
+    plain = reproject_match_fused_warp_order(*args, intr, window=32, **kw)
+    a = reproject_match_pallas(*args, intr, window=32)
+    b = reproject_match_pallas_tiled(*args, intr, window=32)
+    c = reproject_match_fused(*args, intr, window=32, **kw)
+    torch.cuda.synchronize()
+    for x, y, z, w in zip(a, b, c[:3], plain[:3]):
+        assert torch.equal(x, y) and torch.equal(x, z) and torch.equal(x, w)
+    assert c[3].shape == (n, (hw // p) ** 2)
+    assert torch.equal(c[3], plain[3]) and torch.equal(c[4], plain[4])
+
+
+def test_each_wrapper_is_one_device_launch(device):
+    """One CUDA kernel a call, counted by ``torch.profiler``: nothing is
+    stacked, copied or set around the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, intr = _inputs(device, 192, 16, 128, 0)
+    calls = {
+        "pallas": lambda: reproject_match_pallas(*args, intr, window=32),
+        "tiled": lambda: reproject_match_pallas_tiled(*args, intr, window=32),
+        "fused": lambda: reproject_match_fused(*args, intr, window=32),
+    }
+    for name, call in calls.items():
+        call()  # builds and loads the library
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        assert sum(e.count for e in rows) == 1, (name, [e.key for e in rows])
+        assert "rm_" in rows[0].key, (name, rows[0].key)
+
+
+def _kernel_divide(a, b):
+    """``a / b`` as the reproject-match kernel divides (``div_fast`` where
+    its operands are safe, else ``/``)."""
+    from repro_torch.kernels._build import check
+    from repro_torch.kernels.reproject_match.kernel import LIBRARY, stream_of
+
+    q = torch.empty_like(a)
+    check(LIBRARY.library().rm_divide_launch(
+        a.data_ptr(), b.data_ptr(), q.data_ptr(), a.numel(),
+        stream_of(a.device)), "rm_divide_launch")
+    return q
+
+
+def test_kernel_division_is_ieee_division(device):
+    """The kernel's branch-free division equals IEEE division (PyTorch's
+    ``a / b`` of two tensors): for every float32 in [2^-60, 8) divided by 3
+    (the channel mean's quotients) and for random operands across and
+    beyond the safe range (the transform's x / z), zeros of both signs
+    included."""
+    lo = int(np.float32(2.0 ** -60).view(np.int32))
+    hi = int(np.float32(8.0).view(np.int32))
+    chunk = 1 << 26
+    for start in range(lo, hi, chunk):
+        a = torch.arange(start, min(start + chunk, hi), dtype=torch.int32,
+                         device=device).view(torch.float32)
+        b = torch.full_like(a, 3.0)
+        assert torch.equal(_kernel_divide(a, b), a / b), start
+    g = torch.Generator(device=device).manual_seed(0)
+    for scale in (1.0, 30.0, 90.0):
+        a = torch.randn(1 << 24, generator=g, device=device) * torch.exp2(
+            (torch.randn(1 << 24, generator=g, device=device) * scale)
+            .clamp(-120.0, 120.0))
+        b = torch.rand(1 << 24, generator=g, device=device) * 100 + 1e-6
+        a[:4] = torch.tensor([0.0, -0.0, 1e-30, -1e30], device=device)
+        b[4:8] = torch.tensor([1e-6, 2.0 ** 61, 2.0 ** -61, 1.0],
+                              device=device)
+        assert torch.equal(_kernel_divide(a, b), a / b), scale
+        assert torch.equal(torch.signbit(_kernel_divide(a, b)),
+                           torch.signbit(a / b)), scale
 
 
 def test_wrapper_rejects_a_non_contiguous_tensor(device):

@@ -4,8 +4,10 @@ The port's plain version (the CPU path of every wrapper) is held to the
 JAX ``reproject_match_ref`` and to the Pallas kernels run in interpret
 mode, at the reference's own tolerances (``tests/test_kernels.py``):
 diff and coverage within 1e-5, bbox within 1e-3.  The fused rows are
-booleans and must agree exactly.  The CUDA kernel itself is tested on the
-card (``tests/test_torch_cuda.py``).
+booleans and must agree exactly.  ``warp_order.py``, the plain version in
+the CUDA kernel's summation order, is held to the same references and to
+``ref.py`` within 1e-6.  The CUDA kernel itself is tested on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -38,8 +40,16 @@ from repro_torch.kernels.reproject_match.kernel import (
     reproject_match_pallas_tiled,
 )
 from repro_torch.kernels.reproject_match.ref import reproject_match_ref
+from repro_torch.kernels.reproject_match.warp_order import (
+    reproject_match_fused_warp_order,
+    reproject_match_warp_order,
+)
 
 CASES = [(4, 16, 128, 32), (7, 16, 128, 64), (3, 32, 256, 64), (1, 8, 64, 16)]
+# The kernel's warp at its edges: P^2 < 32 (lanes idle), P = 32 (32 pixels
+# a lane), and a 144x144 frame (M = 81: bool rows not 4-byte aligned).
+WARP_CASES = CASES + [(5, 2, 64, 16), (6, 5, 64, 16), (2, 32, 128, 32),
+                      (9, 16, 144, 32)]
 TAU, O_MIN, C_MIN = 0.08, 0.5, 0.6
 
 
@@ -125,6 +135,52 @@ def test_plain_matches_jax_ref_and_pallas(n, p, hw, window):
     _assert_scores_close(
         j_pallas(*jargs, window=window, interpret=True), port
     )
+
+
+@pytest.mark.parametrize("n,p,hw,window", WARP_CASES)
+def test_warp_order_matches_jax_and_the_plain_version(n, p, hw, window):
+    jargs, targs = _both(reproject_inputs(n * 7 + p, n, p, hw), hw)
+    warp = reproject_match_warp_order(*targs, window)
+    _assert_scores_close(j_ref(*jargs, window), warp)
+    _assert_scores_close(
+        j_pallas(*jargs, window=window, interpret=True), warp
+    )
+    plain = reproject_match_ref(*targs, window)
+    for a, b in zip(warp[:2], plain[:2]):
+        np.testing.assert_allclose(to_numpy(a), to_numpy(b), rtol=0,
+                                   atol=1e-6)
+    assert torch.equal(warp[2], plain[2])  # the same corner warp
+
+
+@pytest.mark.parametrize("window", [16, 32, 64])
+def test_warp_order_on_degenerate_entries(window):
+    jargs, targs = _both(_edge_inputs(), 128)
+    warp = reproject_match_warp_order(*targs, window)
+    _assert_scores_close(j_ref(*jargs, window), warp)
+    for a, b in zip(warp, reproject_match_ref(*targs, window)):
+        np.testing.assert_allclose(to_numpy(a), to_numpy(b), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [64, 144])
+def test_fused_warp_order_rows_match_jax(hw):
+    p, window = 16, 32
+    jargs, targs = _both(_matching_inputs(hw=hw, p=p), hw)
+    jout = j_fused(*jargs, window=window, tau=TAU, o_min=O_MIN, c_min=C_MIN,
+                   interpret=True)
+    out = reproject_match_fused_warp_order(
+        *targs, window=window, tau=TAU, o_min=O_MIN, c_min=C_MIN
+    )
+    _assert_scores_close(jout[:3], out[:3])
+    assert out[3].shape == (6, (hw // p) ** 2)  # n = 6 entries, M patches
+    for j, t in zip(jout[3:], out[3:]):
+        np.testing.assert_array_equal(np.asarray(j), to_numpy(t))
+    assert to_numpy(out[3]).any() and not to_numpy(out[3]).all()
+    plain = reproject_match_fused_ref(
+        *targs, window=window, tau=TAU, o_min=O_MIN, c_min=C_MIN
+    )
+    for a, b in zip(out[3:], plain[3:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("window", [16, 32, 64])

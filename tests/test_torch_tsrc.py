@@ -156,6 +156,35 @@ BRANCHES = {
 
 @pytest.mark.parametrize("branch", sorted(BRANCHES))
 def test_tsrc_step_branches_match_jax(branch):
+    _run_branch_against_jax(branch)
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_tsrc_step_branches_in_the_kernels_order_match_jax(branch,
+                                                           monkeypatch):
+    """The five branches with the scores summed in the CUDA kernel's order
+    (``warp_order.py``) in place of the plain ones: the counters and the
+    buffer still equal the JAX package's, so no threshold decided by the
+    kernel's order flips on this stream."""
+    from repro_torch.kernels.reproject_match import fused, ops, warp_order
+
+    calls = []
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(ops, "reproject_match_ref",
+                        counted(warp_order.reproject_match_warp_order))
+    monkeypatch.setattr(fused, "reproject_match_fused_ref",
+                        counted(warp_order.reproject_match_fused_warp_order))
+    _run_branch_against_jax(branch)
+    assert calls and all("warp_order" in c for c in calls)
+
+
+def _run_branch_against_jax(branch):
     jb, tb, pk, ptk = BRANCHES[branch]
     s = stream_64()
     p, cap, n_frames = 16, 16, 6
