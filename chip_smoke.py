@@ -11,11 +11,11 @@ and prints no result line):
 1. The card's name and power limit; TF32 off; the CUDA kernels built from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, in parallel;
    ``-Xptxas -v`` of each kernel (registers, shared memory, spills: the
-   reproject-match kernels, the tensor-core flash kernel and the SSD and
-   RWKV6 kernels must spill nothing) and the tensor-core instructions in
-   ``cuobjdump -sass``: ``HGMMA`` on bf16 (flash attention), ``IMMA`` on
-   s8 (the int8 product and the fused int8 convolution), ``HMMA`` on TF32
-   (the two scans).
+   reproject-match kernels, the two flash kernels and the SSD and RWKV6
+   kernels must spill nothing) and the tensor-core instructions in
+   ``cuobjdump -sass``: ``HGMMA`` on bf16 (the wgmma flash kernel),
+   ``IMMA`` on s8 (the int8 product and the fused int8 convolution),
+   ``HMMA`` on TF32 (the 3xTF32 flash kernel and the two scans).
 2. Each of the kernel's three launches (``reproject_match_pallas``,
    ``reproject_match_pallas_tiled``, ``reproject_match_fused``) against the
    plain PyTorch version on the card, at the main path's shapes and at edge
@@ -43,22 +43,30 @@ and prints no result line):
    processed frame.
 5. The flash-attention kernels against their plain version on the card,
    at the main path's shape (q ``(4, 32, 1024, 64)``, kv heads 4, causal)
-   in bf16 (tensor cores) and float32 (CUDA cores) and at edge shapes (S =
-   1, 100, 2048; head dims 8, 16, 128; MHA, MQA; non-causal); then bf16 on
-   the tensor cores at head dims 64 and 128, GQA groups 1, 4 and 8, S = 1,
-   64, 100, 1024 and 2048, causal and full, in the models' layout ((B, S,
-   H, D) seen as (B, H, S, D)), bitwise equal to the contiguous layout:
-   within 2e-5 in float32 and 3e-2 in bf16, the reference's gates.
-6. At the main shape: the bf16 tensor-core kernel's time, the float32
-   CUDA-core kernel's, their plain version's and
-   ``F.scaled_dot_product_attention``'s in each dtype (the library
-   yardstick, never called by the port), each beside its bound (bf16 at
-   989 TFLOP/s, float32 at 67) and in TFLOP/s.
+   in bf16 (wgmma) and float32 (3xTF32), at Zamba2-2.7B's shared attention
+   (q ``(4, 32, 1024, 160)``, kv heads 32, causal) in both, and at edge
+   shapes (S = 1, 100, 2048; head dims 8, 16, 128, 160; MHA, MQA;
+   non-causal); then bf16 on wgmma at head dims 64 and 128, GQA groups 1,
+   4 and 8, S = 1, 64, 100, 1024 and 2048, and every (dtype, head dim) of
+   the 3xTF32 kernel (float32 at 8-160, bf16 at 8, 16, 32, 160) at GQA
+   groups 1 and 4, S = 1, 100 and 1024, each causal and full, in the
+   models' layout ((B, S, H, D) seen as (B, H, S, D)), bitwise equal to
+   the contiguous layout: within 2e-5 in float32 and 3e-2 in bf16, the
+   reference's gates.
+6. At the main shape: the bf16 wgmma kernel's time, the float32 3xTF32
+   kernel's, and the 3xTF32 kernel's in bf16 at Zamba2-2.7B's shared
+   attention, their plain version's and
+   ``F.scaled_dot_product_attention``'s (the library yardstick, never
+   called by the port), each beside its bound (bf16 at 989 TFLOP/s and
+   3.35 TB/s, float32 at 67 TFLOP/s), the 3xTF32 kernel's also beside its
+   design's floor on the tensor cores (three TF32 products per float32
+   product, one and two for bf16's Q K^T and P V, at 495 TFLOP/s), and in
+   TFLOP/s.
 7. The EFM answer path at full width: TinyLlama-1.1B (22 layers, d_model
    2048) with seeded random bf16 weights and ``attn_backend="pallas"``
    prefills 4 prompts of 1024 seeded token ids (``jit_prefill``) and
    decodes 32 greedy tokens (``greedy_decode_loop``): 22 flash launches
-   per prefill.  The same run on ``"ref"``, then both in float32.  In
+   per prefill (wgmma in bf16, 3xTF32 in float32).  The same run on ``"ref"``, then both in float32.  In
    float32 the logits agree within 1e-3 and the tokens are equal; in bf16
    the prefill logits agree within 0.5 and a differing token must be
    traced to a top-2 margin within 0.5 in both runs' logits.
@@ -119,12 +127,19 @@ and prints no result line):
    tokens and the serve state of the two backends agree within 1e-3.  The
    bf16 ``"pallas"`` prefill and decode are profiled as in phase 8, with
    the scan kernels' share of the device time and their device launches
-   (three a scan).
+   (three a scan).  Zamba2-2.7B runs once more with its shared attention
+   on the flash kernel too (``attn_backend="pallas"``: 9 launches of the
+   3xTF32 kernel at head dim 160 a prefill, beside the 54 scans), in bf16
+   at full depth (held to the ``"ref"``-attention run by phase 7's bf16
+   rule) and in float32 at the cut depth (within 1e-3 of it), and is
+   profiled with the flash kernel's share.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
-two rows: ``flash_attention_pallas``, the bf16 tensor-core instance of
-the main path, and ``flash_attention_pallas/cuda_core``, the float32
-instance, with the launches of phase 7's float32 prefill; the int8 kernel
+three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
+main path; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
+float32, with the launches of phase 7's float32 prefill; and
+``flash_attention_pallas/tf32_d160``, the same kernel in bf16 at head dim
+160, with the launches of phase 15's Zamba2-2.7B prefill; the int8 kernel
 two: ``int8_matmul_pallas/qconv``, the fused launch of the int8 main path,
 and ``int8_matmul_pallas``, the op's product kernel, held and timed in
 phases 9-10 at the main path's product shapes, whose work the fused launch
@@ -161,7 +176,8 @@ FLOP_PER_PAIR = 13  # fused: one (entry, patch) overlap test and its bits
 RM_SOURCE = "src/repro_torch/kernels/reproject_match/csrc/reproject_match.cu"
 FA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention_wgmma.cu")
-FA_F32_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_TF32_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_tf32.cu")
 I8_SOURCE = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 SSD_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
 RWKV_SOURCE = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
@@ -174,8 +190,10 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/reproject_match/fused.py:121", RM_SOURCE),
     "flash_attention_pallas":
         ("src/repro/kernels/flash_attention/kernel.py:99", FA_SOURCE),
-    "flash_attention_pallas/cuda_core":
-        ("src/repro/kernels/flash_attention/kernel.py:99", FA_F32_SOURCE),
+    "flash_attention_pallas/tf32":
+        ("src/repro/kernels/flash_attention/kernel.py:99", FA_TF32_SOURCE),
+    "flash_attention_pallas/tf32_d160":
+        ("src/repro/kernels/flash_attention/kernel.py:99", FA_TF32_SOURCE),
     "int8_matmul_pallas":
         ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
     "int8_matmul_pallas/qconv":
@@ -188,6 +206,8 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
 
 # Flash attention: the reference's gates (tests/test_kernels.py:182,196).
 FA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Zamba2-2.7B's shared attention in its prefill: b, hq, hkv, s, d, causal.
+ZAMBA_ATTN = (4, 32, 32, 1024, 160, True)
 # The EFM path (phase 7): TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 new.
 EFM_ARCH, EFM_BATCH, EFM_PROMPT, EFM_NEW = "tinyllama-1.1b", 4, 1024, 32
 # float32 "pallas" vs "ref": the kernel and the masked softmax sum in other
@@ -228,6 +248,7 @@ SSD_FULL = (4, 80, 1024, 64, 64, 64)  # b, h, t, p, n, chunk
 # Phase 15: the recurrent answer paths, their float32 check's cut depth.
 SSM_ARCHS = {"rwkv6-3b": ("rwkv6_scan_pallas", 8),
              "zamba2-2.7b": ("mamba2_ssd_pallas", 12)}
+HYBRID = "zamba2-2.7b"  # runs its shared attention on the flash kernel too
 SSM_NEW = 8
 
 
@@ -281,6 +302,7 @@ def phase_build(torch) -> None:
     print("[1] reproject_match: 4 rm_* kernels, 0 spills")
     for lib, kernel, count, pattern in (
             (fa_lib, "fa_wgmma_kernel", 2, r"HGMMA\.[\w.]*BF16"),
+            (fa_lib, "fa_tf32_kernel", 10, r"HG?MMA\.[\w.]*TF32"),
             (i8_lib, None, 0, r"IG?MMA\.[\w.]*S8"),
             (ssd_lib, "ssd_", 6, r"HG?MMA\.[\w.]*TF32"),
             (rwkv_lib, "rwkv_", 14, r"HG?MMA\.[\w.]*TF32")):
@@ -879,12 +901,14 @@ def fa_check(torch, label, q, k, v, causal):
 
 def phase_flash(torch, device):
     """Returns the largest |kernel - plain| at the main path's shape of the
-    bf16 tensor-core instance (the path's) and of the float32 instance."""
+    bf16 wgmma instance (the path's) and of the float32 3xTF32 instance,
+    and at Zamba2-2.7B's shared attention of the bf16 3xTF32 instance."""
     from repro_torch.kernels.flash_attention.kernel import route
 
     main = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
     cases = [
         ("main", main),
+        ("Zamba2", ZAMBA_ATTN),
         ("S=1", (2, 8, 2, 1, 64, True)),
         ("S=100", (2, 8, 2, 100, 64, True)),
         ("S=2048", (1, 16, 2, 2048, 64, True)),
@@ -894,6 +918,9 @@ def phase_flash(torch, device):
         ("MQA", (2, 8, 1, 256, 64, True)),
         ("non-causal", (2, 8, 4, 384, 64, False)),
         ("non-causal S=100 D=128", (1, 6, 2, 100, 128, False)),
+        ("D=160 GQA", (2, 8, 2, 512, 160, True)),
+        ("non-causal S=100 D=160", (1, 4, 1, 100, 160, False)),
+        ("S=2048 D=128", (1, 8, 8, 2048, 128, True)),
     ]
     errs = {}
     for i, (label, (b, hq, hkv, s, d, causal)) in enumerate(cases):
@@ -901,8 +928,8 @@ def phase_flash(torch, device):
             q, k, v = fa_inputs(torch, device, b, hq, hkv, s, d, dtype, i)
             err, _ = fa_check(torch, label, q, k, v, causal)
             name = str(dtype).split(".")[1]
-            if label == "main":
-                errs[name] = err
+            if label in ("main", "Zamba2"):
+                errs[label, name] = err
             print(f"[5] flash {label}: q {(b, hq, s, d)} kv heads {hkv} "
                   f"causal={causal} {name} ({route(dtype, d)}): max|err| "
                   f"{err:.3g} (tol {FA_TOL[name]})")
@@ -929,8 +956,38 @@ def phase_flash(torch, device):
           f" 4, 8; S 1, 64, 100, 1024, 2048; causal and full) in the models'"
           f" layout, each bitwise equal to the contiguous layout: max|err| "
           f"{worst:.3g} (tol {FA_TOL['bfloat16']})")
-    return {"flash_attention_pallas": errs["bfloat16"],
-            "flash_attention_pallas/cuda_core": errs["float32"]}
+    # Every (dtype, head dim) of the 3xTF32 kernel in the models' layout,
+    # bitwise equal to the contiguous layout.
+    worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
+    for dtype, dims in ((torch.float32, (8, 16, 32, 64, 128, 160)),
+                        (torch.bfloat16, (8, 16, 32, 160))):
+        name = str(dtype).split(".")[1]
+        for d in dims:
+            _need(route(dtype, d) == "tf32", f"{name} D={d}: {route(dtype, d)}")
+            for group in (1, 4):
+                for s in (1, 100, 1024):
+                    for causal in (True, False):
+                        b, hq = (1 if s >= 1024 else 2), 8
+                        q, k, v = fa_inputs(torch, device, b, hq, hq // group,
+                                            s, d, dtype, n, bshd=True)
+                        label = (f"{name} D={d} group={group} S={s} "
+                                 f"causal={causal} strided")
+                        err, out = fa_check(torch, label, q, k, v, causal)
+                        _, dense = fa_check(torch, label, q.contiguous(),
+                                            k.contiguous(), v.contiguous(),
+                                            causal)
+                        _need(torch.equal(out, dense), f"flash {label}: the "
+                              f"strided and contiguous layouts differ")
+                        worst[name], n = max(worst[name], err), n + 1
+    print(f"[5] flash 3xTF32: {n} cases (float32 D 8, 16, 32, 64, 128, 160; "
+          f"bf16 D 8, 16, 32, 160; GQA groups 1, 4; S 1, 100, 1024; causal "
+          f"and full) in the models' layout, each bitwise equal to the "
+          f"contiguous layout: max|err| float32 {worst['float32']:.3g} (tol "
+          f"{FA_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
+          f"{FA_TOL['bfloat16']})")
+    return {"flash_attention_pallas": errs["main", "bfloat16"],
+            "flash_attention_pallas/tf32": errs["main", "float32"],
+            "flash_attention_pallas/tf32_d160": errs["Zamba2", "bfloat16"]}
 
 
 def fa_bound(b, hq, hkv, s, d, causal, elem_bytes, flop_per_s):
@@ -955,21 +1012,27 @@ def fa_bound(b, hq, hkv, s, d, causal, elem_bytes, flop_per_s):
 
 
 def phase_flash_times(torch, device):
-    """At the main shape, per dtype: the kernel (bf16 on the tensor cores,
-    float32 on the CUDA cores), the plain version and
+    """Per row of the kernels line: the kernel (bf16 on wgmma at the main
+    shape; 3xTF32 in float32 at the main shape and in bf16 at Zamba2-2.7B's
+    shared attention), the plain version and
     ``F.scaled_dot_product_attention`` (yardstick only), beside the bound
-    at the dtype's peak.  Returns the rows of the kernels line."""
+    at the dtype's peak and, for the 3xTF32 kernel, its design's floor on
+    the tensor cores (``tf32_products`` TF32 products per product of the
+    function, at 495 TFLOP/s).  Returns the rows of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas, flash_attention_plain, route)
 
-    shape = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
+    main = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
     rows = {}
-    for dtype, name, peak, per in (
-            (torch.bfloat16, "flash_attention_pallas", BF16_FLOP_PER_S, 20),
-            (torch.float32, "flash_attention_pallas/cuda_core",
-             FP32_FLOP_PER_S, 5)):
+    for name, shape, dtype, peak, tf32_products, per in (
+            ("flash_attention_pallas", main, torch.bfloat16, BF16_FLOP_PER_S,
+             None, 20),
+            ("flash_attention_pallas/tf32", main, torch.float32,
+             FP32_FLOP_PER_S, 3.0, 10),
+            ("flash_attention_pallas/tf32_d160", ZAMBA_ATTN, torch.bfloat16,
+             BF16_FLOP_PER_S, 1.5, 10)):
         q, k, v = fa_inputs(torch, device, *shape[:5], dtype, 0)
         ms = device_ms(torch, lambda: flash_attention_pallas(q, k, v),
                        per_graph=per)
@@ -984,18 +1047,27 @@ def phase_flash_times(torch, device):
         strided_ms = device_ms(torch, lambda: flash_attention_pallas(q, k, vs),
                                per_graph=per)
         bound_ms, bound_by, flop = fa_bound(*shape, q.element_size(), peak)
+        floor = ""
+        if tf32_products is not None:
+            floor_ms = tf32_products * flop / TF32_FLOP_PER_S * 1e3
+            floor = (f"; 3xTF32 floor {floor_ms * 1e3:.2f} us "
+                     f"({tf32_products:g} TF32 products a product at "
+                     f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s; kernel at "
+                     f"{floor_ms / ms:.1%} of it)")
         dt = str(dtype).split(".")[1]
-        print(f"[6] {name}: q {tuple(q.shape)} {dt}, kv heads 4, causal, "
-              f"{route(dtype, 64)}: kernel {ms * 1e3:.2f} us "
+        print(f"[6] {name}: q {tuple(q.shape)} {dt}, kv heads {shape[2]}, "
+              f"causal, {route(dtype, shape[4])}: kernel {ms * 1e3:.2f} us "
               f"({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s; v strided "
               f"{strided_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
               f"scaled_dot_product_attention {library_ms * 1e3:.2f} us "
               f"({flop / (library_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {flop / 1e9:.2f} GFLOP "
               f"at {peak / 1e12:.0f} TFLOP/s; kernel at "
-              f"{bound_ms / ms:.1%} of it)")
+              f"{bound_ms / ms:.1%} of it){floor}")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
+        del q, k, v, vs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1114,8 +1186,8 @@ def trace_token_flips(kern, ref, label, tol=BF16_LOGIT_TOL):
 
 def phase_efm(torch, device, wrappers):
     """The EFM runs; returns the flash launches of the main path's run
-    (bf16, ``"pallas"``: the tensor-core instance) and of the float32
-    ``"pallas"`` run (the CUDA-core instance)."""
+    (bf16, ``"pallas"``: the wgmma instance) and of the float32
+    ``"pallas"`` run (the 3xTF32 instance)."""
     from repro_torch.configs import get_config
 
     n_layers = get_config(EFM_ARCH).n_layers
@@ -1153,7 +1225,7 @@ def phase_efm(torch, device, wrappers):
                   + "".join(f"; {n}" for n in notes))
     return {"flash_attention_pallas": runs["bfloat16", "pallas"][
                 "launches"]["flash_attention_pallas"],
-            "flash_attention_pallas/cuda_core": runs["float32", "pallas"][
+            "flash_attention_pallas/tf32": runs["float32", "pallas"][
                 "launches"]["flash_attention_pallas"]}
 
 
@@ -1198,13 +1270,14 @@ def phase_efm_profile(torch, device):
     torch.cuda.empty_cache()
 
 
-def profile_steps(torch, label, runs, focus=None):
+def profile_steps(torch, label, runs, focus=()):
     """For each ``(name, fn, per, unit)``: a warm-up, a timed run (host
     clock, no profiler) and a run under ``torch.profiler``; prints wall
     time, device busy time (the sum of the device-side events) and the
     idle share it leaves of the unprofiled wall time, device launches, and
     the device time by kernel, each per ``unit`` (``per`` of them a run),
-    and the share of the kernels whose name holds ``focus``.
+    and the share of the kernels whose name holds each string of
+    ``focus``.
     """
     for name, fn, per, unit in runs:
         fn()  # warm-up
@@ -1223,10 +1296,10 @@ def profile_steps(torch, label, runs, focus=None):
             print(f"    {e.self_device_time_total / per:10.1f} us/{unit} "
                   f"{e.self_device_time_total / busy_us:6.1%} "
                   f"{e.count:6d} x  {e.key[:70]}")
-        if focus is not None:
-            mine = [e for e in rows if focus in e.key]
+        for part in focus:
+            mine = [e for e in rows if part in e.key]
             us = sum(e.self_device_time_total for e in mine)
-            print(f"{label} {name}: kernels named *{focus}*: {us / per:.1f} "
+            print(f"{label} {name}: kernels named *{part}*: {us / per:.1f} "
                   f"us/{unit} ({us / busy_us:.1%} of device busy), "
                   f"{sum(e.count for e in mine) / per:.1f} launches/{unit}")
 
@@ -1895,8 +1968,9 @@ def pad_serve_state(torch, state, n):
 
 
 def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
-                  n_layers=None):
-    """``arch`` on ``scan_backend`` with all dtypes ``dtype`` (``n_layers``
+                  n_layers=None, attn_backend="ref"):
+    """``arch`` on ``scan_backend`` (and, for the hybrid's shared
+    attention, ``attn_backend``) with all dtypes ``dtype`` (``n_layers``
     cuts the depth): a warm-up prefill, then (counts set to 0) a timed
     prefill and ``SSM_NEW`` greedy tokens.  Returns the results."""
     import dataclasses
@@ -1908,7 +1982,8 @@ def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
     from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
 
     cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype,
-                                   cache_dtype=dtype)
+                                   cache_dtype=dtype,
+                                   attn_backend=attn_backend)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
     model = build_model(cfg, device=device, scan_backend=scan_backend)
@@ -1949,6 +2024,8 @@ def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
     peak = torch.cuda.max_memory_allocated()
 
     label = f"{arch} {dtype} scan_backend={scan_backend!r}"
+    if attn_backend != "ref":
+        label += f" attn_backend={attn_backend!r}"
     _need(tuple(logits.shape) == (EFM_BATCH, 1, cfg.vocab)
           and logits.dtype == torch.float32,
           f"{label}: logits {tuple(logits.shape)} {logits.dtype}")
@@ -1979,7 +2056,7 @@ def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
     return result
 
 
-def profile_recurrent(torch, device, arch):
+def profile_recurrent(torch, device, arch, attn_backend="ref"):
     """Phase 15's bf16 ``"pallas"`` run of ``arch`` under
     ``torch.profiler``, as phase 8 profiles TinyLlama's."""
     import numpy as np
@@ -1988,7 +2065,7 @@ def profile_recurrent(torch, device, arch):
     from repro_torch.models import build_model
     from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(attn_backend=attn_backend)
     model = build_model(cfg, device=device, scan_backend="pallas")
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     rng = np.random.default_rng(SEED)
@@ -2003,16 +2080,56 @@ def profile_recurrent(torch, device, arch):
                                         state.items()}, SSM_NEW)
         greedy_decode_loop(model, params, fresh, first, EFM_PROMPT, SSM_NEW)
 
-    profile_steps(torch, f"[15] {arch} bf16 pallas", (
+    attn = "" if attn_backend == "ref" else f", attention {attn_backend}"
+    profile_steps(torch, f"[15] {arch} bf16 pallas{attn}", (
         ("prefill", lambda: prefill(params, batch), 1, "prefill"),
         ("decode", run_decode, SSM_NEW, "step")),
-        focus="ssd_" if arch == "zamba2-2.7b" else "rwkv_")
+        focus=(("ssd_", "fa_tf32") if arch == HYBRID else ("rwkv_",)))
     del params, state, model
     torch.cuda.empty_cache()
 
 
+def compare_runs(torch, kern, plain, label, dtype):
+    """Phase 15's agreement of two runs: in float32 logits, decode logits
+    and serve state (relative to its scale) within 1e-3 and the same
+    greedy tokens or flips traced to a margin within it; in bf16 the
+    prefill logits within 0.5 and every differing token traced to a top-2
+    margin within 0.5 (phase 7's rule)."""
+    err = float((kern["logits"] - plain["logits"]).abs().max())
+    if dtype == "float32":
+        step_err = float((kern["steps"] - plain["steps"]).abs().max())
+        state_err = {}
+        for k, v in kern["state"].items():
+            if v.dtype.is_floating_point:
+                scale = max(1.0, float(plain["state"][k].abs().max()))
+                state_err[k] = float(
+                    (v - plain["state"][k]).abs().max()) / scale
+            else:
+                _need(torch.equal(v, plain["state"][k]),
+                      f"{label}: {k} differs between the runs")
+        notes = trace_token_flips(kern, plain, label, F32_LOGIT_TOL)
+        _need(max(err, step_err, *state_err.values()) <= F32_LOGIT_TOL,
+              f"{label}: logits {err}, decode {step_err}, state (relative "
+              f"to its scale) {state_err} > {F32_LOGIT_TOL}")
+        print(f"[15] {label}: max|d logits| prefill {err:.3g}, decode "
+              f"steps {step_err:.3g}, serve state (over its scale) "
+              + ", ".join(f"{k} {e:.3g}" for k, e in state_err.items())
+              + f" (tol {F32_LOGIT_TOL}); greedy tokens "
+              + ("equal" if not notes else "; ".join(notes)))
+    else:
+        _need(err <= BF16_LOGIT_TOL, f"{label}: prefill logits differ by "
+              f"{err} > {BF16_LOGIT_TOL}")
+        notes = trace_token_flips(kern, plain, label)
+        n_diff = int((kern["tokens"] != plain["tokens"]).sum())
+        print(f"[15] {label}: max|d logits| prefill {err:.3g} (tol "
+              f"{BF16_LOGIT_TOL}); greedy tokens "
+              f"{'equal' if not n_diff else f'{n_diff} differ'}"
+              + "".join(f"; {n}" for n in notes))
+
+
 def phase_recurrent(torch, device, wrappers):
-    """Both models on both backends; returns each kernel's launches in its
+    """Both models on both scan backends, and the hybrid with its shared
+    attention on the flash kernel; returns each kernel's launches in its
     model's bf16 ``"pallas"`` prefill."""
     from repro_torch.configs import get_config
 
@@ -2023,7 +2140,8 @@ def phase_recurrent(torch, device, wrappers):
                                  wrappers, n_layers)
             plain = recurrent_run(torch, device, arch, "chunked", dtype,
                                   wrappers, n_layers)
-            depth = n_layers or get_config(arch).n_layers
+            cfg = get_config(arch)
+            depth = n_layers or cfg.n_layers
             _need(kern["launches"][kernel] == depth,
                   f"{arch} {dtype}: {kern['launches'][kernel]} {kernel} "
                   f"launches in one prefill, not {depth}")
@@ -2031,43 +2149,31 @@ def phase_recurrent(torch, device, wrappers):
                   and sum(kern["launches"].values()) == depth,
                   f"{arch} {dtype}: other kernels launched: "
                   f"{kern['launches']}, {plain['launches']}")
-            err = float((kern["logits"] - plain["logits"]).abs().max())
-            if dtype == "float32":
-                step_err = float((kern["steps"] - plain["steps"]).abs().max())
-                state_err = {}
-                for k, v in kern["state"].items():
-                    if v.dtype.is_floating_point:
-                        scale = max(1.0, float(plain["state"][k].abs().max()))
-                        state_err[k] = float(
-                            (v - plain["state"][k]).abs().max()) / scale
-                    else:
-                        _need(torch.equal(v, plain["state"][k]),
-                              f"{arch}: {k} differs between the backends")
-                notes = trace_token_flips(kern, plain, f"{arch} float32",
-                                          F32_LOGIT_TOL)
-                _need(max(err, step_err, *state_err.values())
-                      <= F32_LOGIT_TOL,
-                      f"{arch} float32: pallas vs chunked logits {err}, "
-                      f"decode {step_err}, state (relative to its scale) "
-                      f"{state_err} > {F32_LOGIT_TOL}")
-                print(f"[15] {arch} float32, {depth} layers, pallas vs "
-                      f"chunked: max|d logits| prefill {err:.3g}, decode "
-                      f"steps {step_err:.3g}, serve state (over its scale) "
-                      + ", ".join(f"{k} {e:.3g}" for k, e in state_err.items())
-                      + f" (tol {F32_LOGIT_TOL}); greedy tokens "
-                      + ("equal" if not notes else "; ".join(notes)))
-            else:
+            what = f"{arch} {dtype}" + (f", {depth} layers"
+                                        if n_layers else "")
+            compare_runs(torch, kern, plain, f"{what} pallas vs chunked",
+                         dtype)
+            if dtype == "bfloat16":
                 launches[kernel] = kern["launches"][kernel]
-                _need(err <= BF16_LOGIT_TOL, f"{arch} bfloat16: prefill "
-                      f"logits differ by {err} > {BF16_LOGIT_TOL}")
-                notes = trace_token_flips(kern, plain, f"{arch} bfloat16")
-                n_diff = int((kern["tokens"] != plain["tokens"]).sum())
-                print(f"[15] {arch} bfloat16 pallas vs chunked: max|d "
-                      f"logits| prefill {err:.3g} (tol {BF16_LOGIT_TOL}); "
-                      f"greedy tokens "
-                      f"{'equal' if not n_diff else f'{n_diff} differ'}"
-                      + "".join(f"; {n}" for n in notes))
                 profile_recurrent(torch, device, arch)
+            if arch != HYBRID:
+                continue
+            # The shared attention on the 3xTF32 flash kernel (head dim
+            # 160), held to the run above with attention on "ref".
+            attn = recurrent_run(torch, device, arch, "pallas", dtype,
+                                 wrappers, n_layers, attn_backend="pallas")
+            n_inv = depth // cfg.shared_attn_period
+            flash = attn["launches"]["flash_attention_pallas"]
+            _need(flash == n_inv and attn["launches"][kernel] == depth
+                  and sum(attn["launches"].values()) == depth + n_inv,
+                  f"{arch} {dtype} attn_backend='pallas': launches "
+                  f"{attn['launches']}, not {n_inv} flash and {depth} "
+                  f"{kernel}")
+            compare_runs(torch, attn, kern, f"{what} attention pallas vs "
+                         f"ref", dtype)
+            if dtype == "bfloat16":
+                launches["flash_attention_pallas/tf32_d160"] = flash
+                profile_recurrent(torch, device, arch, attn_backend="pallas")
     return launches
 
 

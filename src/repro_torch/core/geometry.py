@@ -85,6 +85,12 @@ def invert_pose(pose: Tensor) -> Tensor:
     return pose_from_rt(rot_t, new_t)
 
 
+def relative_transform(src_pose: Tensor, dst_pose: Tensor) -> Tensor:
+    """T_{p1->p2}: maps points in the *src* camera frame to the *dst*
+    frame; both poses camera-to-world: ``inv(T_wc_dst) @ T_wc_src``."""
+    return invert_pose(dst_pose) @ src_pose
+
+
 def lift(uv: Tensor, depth: Tensor, intr: Intrinsics) -> Tensor:
     """``(..., 2)`` pixels + ``(...,)`` depth -> ``(..., 3)`` camera points."""
     x = (uv[..., 0] - intr.cx) / intr.f * depth
@@ -120,6 +126,54 @@ def reproject_points(
     Returns ``(uv2, z2, valid)``.
     """
     return project(transform_points(t_rel, lift(uv, depth, intr)), intr)
+
+
+def _t_cw(intr: Intrinsics, depth: Tensor) -> Tensor:
+    """T_cw(f, d) per point, ``(..., 4, 4)``: homogeneous ``[u, v, f, 1]``
+    -> camera-frame ``[x, y, z, 1]`` with x = d (u - cx) / f,
+    y = d (v - cy) / f, z = d."""
+    d_over_f = depth / intr.f
+    z = torch.zeros_like(depth)
+    o = torch.ones_like(depth)
+    rows = [
+        torch.stack([d_over_f, z, z, -d_over_f * intr.cx], -1),
+        torch.stack([z, d_over_f, z, -d_over_f * intr.cy], -1),
+        torch.stack([z, z, d_over_f, z], -1),
+        torch.stack([z, z, z, o], -1),
+    ]
+    return torch.stack(rows, -2)
+
+
+def _t_wc(intr: Intrinsics) -> Tensor:
+    """T_wc(f), ``(4, 4)``: camera-frame ``[x, y, z, 1]`` -> homogeneous
+    image ``[u w, v w, f w, w]`` (w = z)."""
+    f, cx, cy = intr.f, intr.cx, intr.cy
+    z = torch.zeros_like(f)
+    o = torch.ones_like(f)
+    return torch.stack([
+        torch.stack([f, z, cx, z]),
+        torch.stack([z, f, cy, z]),
+        torch.stack([z, z, f, z]),
+        torch.stack([z, z, o, z]),
+    ])
+
+
+def eq1_reproject(
+    uv: Tensor, depth: Tensor, intr: Intrinsics, t_rel: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The paper's Eq. 1 as a literal chain of 4x4 matrices,
+    ``[o'_f2, f, 1] = T_wc(f) T_{p1->p2} T_cw(f, d1) [o'_f1, f, 1]``:
+    the same function as :func:`reproject_points`, kept as the
+    faithfulness reference.  Returns ``(uv2, z2, valid)``."""
+    homog = torch.stack([uv[..., 0], uv[..., 1],
+                         intr.f.expand(uv[..., 0].shape),
+                         torch.ones_like(uv[..., 0])], -1)
+    chain = _t_wc(intr) @ t_rel @ _t_cw(intr, depth)  # (..., 4, 4)
+    out = torch.einsum("...ij,...j->...i", chain, homog)
+    w = out[..., 3]
+    valid = w > _EPS
+    safe_w = torch.where(valid, w, torch.ones_like(w))
+    return out[..., :2] / safe_w[..., None], w, valid
 
 
 def patch_pixel_grid(origin_yx: Tensor, patch: int) -> Tensor:

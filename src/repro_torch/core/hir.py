@@ -73,3 +73,8 @@ def forward(model: HIRNet, rgb64: Tensor, heat64: Tensor,
 def binary_saliency(logits: Tensor) -> Tensor:
     """Binary saliency map S_t."""
     return logits > 0.0
+
+
+def n_params(model: HIRNet) -> int:
+    """The network's number of scalar parameters."""
+    return sum(int(p.numel()) for p in model.parameters())

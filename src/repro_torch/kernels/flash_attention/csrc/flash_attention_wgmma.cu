@@ -3,8 +3,9 @@
 //
 // What it replaces: src/repro/kernels/flash_attention/kernel.py
 //   flash_attention_pallas (body _flash_kernel), for bf16 q, k, v.  The
-//   float32 inputs and the small head dims (8, 16, 32) go to the CUDA-core
-//   kernel beside it (flash_attention.cu); kernel.py's route() picks one.
+//   float32 inputs and the other head dims (8, 16, 32, 160) go to the
+//   3xTF32 kernel beside it (flash_attention_tf32.cu); kernel.py's route()
+//   picks one.
 // Contract (the Pallas kernel's): q (B, Hq, S, D), k / v (B, Hkv, S, D),
 // read through their strides (the last dim contiguous; every other stride
 // and the base 16-byte aligned, as TMA needs); query head h reads kv head

@@ -220,16 +220,14 @@ def attention_full(
     them in f32.
 
     ``window`` is a sliding window: query ``i`` sees keys ``j`` with
-    ``i - window < j``.  The flash kernel has no window, so ``"pallas"``
-    with a window raises (the reference quietly takes the masked path).
+    ``i - window < j``.  The flash kernel has no window: ``"pallas"`` runs
+    it only when ``window is None`` and takes the masked reference path
+    otherwise, as the reference routes (``repro/models/layers.py``).
 
     With ``cache_dtype`` set it returns ``(out, cache)``: the prefix's KV
     cache, rotated keys and values cast to ``cache_dtype``, which the
     reference's ``attention_prefill_cache`` computes a second time.
     """
-    if backend == "pallas" and window is not None:
-        raise ValueError(f"the flash-attention kernel has no sliding window "
-                         f"(window={window}); use backend 'ref' or 'chunked'")
     b, s, _ = x.shape
     q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)
     k = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads)
@@ -243,7 +241,7 @@ def attention_full(
         k = apply_rope(k, cos, sin)
 
     group = n_heads // n_kv_heads
-    if backend == "pallas":
+    if backend == "pallas" and window is None:
         # The kernels read these (B, S, H, D)-backed views through their
         # strides and return a (B, S, Hq, D)-backed view, which
         # _merge_heads reshapes without a copy.

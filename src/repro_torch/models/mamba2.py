@@ -22,7 +22,11 @@ Python loops take the place of ``lax.scan``.  ``prefill`` takes the
 scan's backend (the reference's ``"chunked"`` by default, ``"pallas"``
 for the CUDA kernel) and each shared block's cache from the K/V its
 attention already computed, where the reference computes them again in
-``attention_prefill_cache``.  Left out: ``loss_fn`` and remat (training).
+``attention_prefill_cache``.  Its shared attention runs on
+``cfg.attn_backend``, as ``forward``'s does in both packages (the
+reference's ``prefill`` leaves it on the masked default), so
+``"pallas"`` puts a prefill within the window on the flash kernel.
+Left out: ``loss_fn`` and remat (training).
 """
 
 from __future__ import annotations
@@ -290,8 +294,8 @@ def prefill(
         h = torch.cat([x, emb0], dim=-1)
         a, kv = L.attention_full(
             sp["attn"], L.rmsnorm(sp["ln1"], h), cfg.n_heads, cfg.n_kv_heads,
-            rope_base=cfg.rope_base, compute_dtype=cfg.cdt,
-            cache_dtype=cfg.cachedt, window=win)
+            rope_base=cfg.rope_base, backend=cfg.attn_backend,
+            compute_dtype=cfg.cdt, cache_dtype=cfg.cachedt, window=win)
         hh = h + a.to(h.dtype)
         hh = hh + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], hh),
                         cfg.cdt).to(hh.dtype)

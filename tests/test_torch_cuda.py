@@ -206,7 +206,13 @@ def test_empty_entry_axis_launches_nothing(device):
     [(1, 4, 4, 256, 64, True), (2, 8, 2, 256, 64, True),
      (1, 4, 1, 128, 32, True), (1, 2, 2, 256, 64, False),
      (2, 16, 2, 512, 128, True), (1, 4, 2, 100, 16, True),
-     (1, 2, 1, 1, 8, True), (4, 32, 4, 1024, 64, True)],
+     (1, 2, 1, 1, 8, True), (4, 32, 4, 1024, 64, True),
+     # head dim 160 (Zamba2-2.7B's shared attention), GQA and MQA, S = 1,
+     # 100 and 2048, causal and full; and the sums longest at D = 128
+     (2, 8, 8, 256, 160, True), (1, 8, 2, 100, 160, True),
+     (2, 4, 1, 1, 160, False), (1, 4, 4, 2048, 160, True),
+     (1, 4, 2, 100, 160, False), (1, 8, 8, 2048, 128, True),
+     (1, 4, 1, 2048, 32, False)],
 )
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
@@ -278,7 +284,10 @@ def test_flash_tensor_core_matches_its_plain_version(device, b, hq, hkv, s,
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
                                      (torch.float32, 64),
-                                     (torch.bfloat16, 16)])
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 128),
+                                     (torch.float32, 160),
+                                     (torch.bfloat16, 160)])
 def test_flash_strided_and_contiguous_inputs_agree_bitwise(device, dtype, d):
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_pallas)
@@ -307,8 +316,10 @@ def test_flash_output_is_a_view_of_a_bshd_buffer(device):
 
 @pytest.mark.parametrize("dtype,d,expected", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.bfloat16, 8, "tf32"), (torch.bfloat16, 32, "tf32"),
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
+    (torch.float32, 160, "tf32"), (torch.bfloat16, 160, "tf32"),
+    (torch.float32, 8, "tf32"), (torch.bfloat16, 16, "tf32"),
 ])
 def test_flash_each_route_launches(device, dtype, d, expected):
     from repro_torch.kernels.flash_attention.kernel import (
@@ -321,6 +332,32 @@ def test_flash_each_route_launches(device, dtype, d, expected):
     torch.cuda.synchronize()
     assert flash_attention_pallas.launches == before + 1
     plain = flash_attention_plain(q, q[:, :1], q[:, :1])
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((out.float() - plain.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,d,pitch", [(torch.float32, 64, 66),
+                                           (torch.bfloat16, 160, 164),
+                                           (torch.float32, 8, 9)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32_reads_unaligned_strides(device, dtype, d, pitch, causal):
+    """Rows that are not 16-byte aligned take the 3xTF32 kernel's scalar
+    staging (no cp.async) and give the aligned call's values."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain, route)
+
+    assert route(dtype, d) == "tf32"
+    g = torch.Generator(device=device).manual_seed(d)
+    q, k, v = [torch.randn(2, h, 100, pitch, generator=g, device=device).to(
+        dtype)[..., :d] for h in (4, 2, 2)]
+    before = flash_attention_pallas.launches
+    out = flash_attention_pallas(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_pallas.launches == before + 1
+    dense = flash_attention_pallas(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    assert torch.equal(out, dense)
+    plain = flash_attention_plain(q, k, v, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((out.float() - plain.float()).abs().max()) <= tol
 

@@ -104,9 +104,9 @@ def _assert_cache(jc, tc, tol, what):
 
 
 def _prefill_and_decode(pair, toks, prompt, cache_dtype, tol, scan_backend,
-                        pad):
+                        pad, **cfg_kw):
     jparams, tparams = pair
-    jcfg, tcfg = _cfgs(cache_dtype=cache_dtype)
+    jcfg, tcfg = _cfgs(cache_dtype=cache_dtype, **cfg_kw)
     jm = jax_build_model(jcfg)
     tm = build_model(tcfg, device="cpu", scan_backend=scan_backend)
     lj, cj = jax.jit(jm.prefill)(jparams,
@@ -159,6 +159,38 @@ def test_windowed_prefill_and_decode_past_the_window_match_jax(
     toks = _tokens(128 + NEW, seed=3)
     _prefill_and_decode(pair, toks, 128, "float32", F32_TOL, scan_backend,
                         pad=False)
+
+
+@pytest.mark.parametrize("s", [PROMPT, 128])  # below / above the window
+def test_pallas_attention_matches_jax(pair, s, monkeypatch):
+    """``attn_backend="pallas"``: the forward pass runs the flash kernel
+    (JAX: the Pallas kernel in interpret mode; the port: its plain version
+    on the CPU) at every S; the port's prefill runs it within the window
+    and the masked path past it (``window`` set), where the reference's
+    prefill takes the masked path throughout.  Decode continues from the
+    prefill's cache as in the tests above."""
+    calls = []
+    real = TL.flash_attention_pallas
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TL, "flash_attention_pallas", spy)
+    jparams, tparams = pair
+    jcfg, tcfg = _cfgs(cache_dtype="float32", attn_backend="pallas")
+    toks = _tokens(s + NEW, seed=4)
+    full_j = jax.jit(jax_build_model(jcfg).forward)(
+        jparams, {"tokens": jnp.asarray(toks[:, :s])})
+    full_t = build_model(tcfg, device="cpu").forward(
+        tparams, {"tokens": to_torch(toks[:, :s])})
+    assert_leaves_match([full_j], [full_t], atol=F32_TOL, what="forward")
+    n_inv = tcfg.n_layers // tcfg.shared_attn_period
+    assert len(calls) == n_inv
+    calls.clear()
+    _prefill_and_decode(pair, toks, s, "float32", F32_TOL, "pallas",
+                        pad=s <= tcfg.attn_window, attn_backend="pallas")
+    assert len(calls) == (n_inv if s <= tcfg.attn_window else 0)
 
 
 def test_greedy_tokens_equal_jax(pair):
@@ -291,10 +323,18 @@ def test_attention_decode_window_matches_jax(window):
                                atol=F32_TOL)
 
 
-def test_flash_backend_with_a_window_raises():
-    """The reference quietly takes the masked path here
-    (``layers.py:274``); the port refuses rather than reroute."""
-    _, tp = _attn_params(3)
-    with pytest.raises(ValueError, match="window=5"):
-        TL.attention_full(tp, torch.zeros(1, 16, 32), 4, 2, backend="pallas",
-                          window=5)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backend_with_a_window_takes_the_masked_path_as_jax(
+        causal, monkeypatch):
+    """With a window the reference's ``backend="pallas"`` takes the masked
+    path (the kernel runs only when ``window is None``); so does the
+    port's, and it launches nothing."""
+    monkeypatch.setattr(TL, "flash_attention_pallas", None)  # never called
+    jp, tp = _attn_params(3)
+    x = np.random.default_rng(6).standard_normal((2, 16, 32)).astype(
+        np.float32)
+    j = JL.attention_full(jp, jnp.asarray(x), 4, 2, backend="pallas",
+                          causal=causal, window=5)
+    t = TL.attention_full(tp, to_torch(x), 4, 2, backend="pallas",
+                          causal=causal, window=5)
+    np.testing.assert_allclose(np.asarray(j), to_numpy(t), atol=F32_TOL)

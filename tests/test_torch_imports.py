@@ -163,3 +163,46 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_serve_names_resolve_lazily_without_jax():
+    """``repro_torch.serve`` maps the reference's ``_LAZY`` names the port
+    has to their modules; importing the package loads none of them."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import repro_torch, repro_torch.serve as s\n"
+            "assert 'repro_torch.serve.efm' not in sys.modules\n"
+            "from repro_torch.serve import (jit_prefill, jit_decode_step,\n"
+            "    greedy_decode_loop, KLadderController)\n"
+            "from repro_torch.serve import efm, adaptive\n"
+            "assert jit_prefill is efm.jit_prefill\n"
+            "assert jit_decode_step is efm.jit_decode_step\n"
+            "assert greedy_decode_loop is efm.greedy_decode_loop\n"
+            "assert KLadderController is adaptive.KLadderController\n"
+            "assert sorted(s.__all__) == sorted(['jit_prefill', "
+            "'jit_decode_step', 'greedy_decode_loop', 'KLadderController'])\n"
+            "try:\n"
+            "    s.bogus\n"
+            "except AttributeError:\n"
+            "    pass\n"
+            "else:\n"
+            "    raise AssertionError('bogus resolved')\n"
+            "assert sys.modules['jax'] is None\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_serve_lazy_table_is_the_references_where_ported():
+    """Every name of the port's table is in the reference's, under the
+    same module (``repro.serve.X`` -> ``repro_torch.serve.X``)."""
+    import re
+
+    from repro_torch import serve
+
+    ref = (ROOT / "src" / "repro" / "serve" / "__init__.py").read_text()
+    ref_lazy = dict(re.findall(r'"(\w+)": "repro\.serve\.(\w+)"', ref))
+    for name, mod in serve._LAZY.items():
+        assert mod == f"repro_torch.serve.{ref_lazy[name]}", name
