@@ -133,6 +133,31 @@ and prints no result line):
    at full depth (held to the ``"ref"``-attention run by phase 7's bf16
    rule) and in float32 at the cut depth (within 1e-3 of it), and is
    profiled with the flash kernel's share.
+16. Multi-stream serving, in a process of its own (``chip_smoke.py
+   --serve``, on phase 1's libraries).  (a) The pool's launches at 32
+   slots: ``rm_fused``
+   and ``rm_scores`` (192 entries a slot, each slot its own 128x128 frame)
+   and the fused int8 convolution with one scale per image (the depth
+   network's 8 layers), each one launch under ``torch.func.vmap`` and
+   every slot bitwise its own launch; times beside the vmapped plain
+   version and the bound.  (b) ``StreamServer`` over ``EPICCompressor(
+   EPICConfig(prefilter_k=8))`` at published widths, ``ServerConfig(
+   capacity=32, chunk_frames=8, k_ladder=(8, 16, 24, 48),
+   eviction="lru")``: 24 live streams of 12 chunks, 4 closed and 4
+   admitted mid-run, on the oracle depth track with no network (every
+   live stream bitwise its solo adaptive session), again with
+   ``tiers=(8, 24)`` (bitwise the flat pool), and on the fp32 and int8
+   depth tracks with the HIR network (``k_trajectory``, counters and
+   integer state equal to the solo sessions, the largest float difference
+   within ``SERVE_FLOAT_TOL``: cuDNN may convolve a frame differently at
+   batch 32); each run's launches counted from 0 just before its first
+   tick to just after its last, one of each kernel a frame of each rung
+   group.  (c) Readings beside the card's name and power limit: no host
+   sync in a tick's dispatch (sync-debug mode "error"), aggregate
+   frames/s, tick latency median and p99, device idle share, peak device
+   memory a slot, and device launches per tick-frame at 8 and at 32 live
+   streams (equal: one step program, one launch of each kernel a frame
+   for all slots).
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
@@ -143,8 +168,11 @@ float32, with the launches of phase 7's float32 prefill; and
 two: ``int8_matmul_pallas/qconv``, the fused launch of the int8 main path,
 and ``int8_matmul_pallas``, the op's product kernel, held and timed in
 phases 9-10 at the main path's product shapes, whose work the fused launch
-does on the main path: 0 launches there), the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+does on the main path: 0 launches there; and the pool path's two rows,
+``reproject_match_fused/slots`` and ``int8_matmul_pallas/qconv/slots``:
+phase 16's launches at 32 slots, with the launches of its serving runs),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -202,6 +230,11 @@ KERNELS = {  # wrapper name -> (the TPU kernel it replaces, its source)
         ("src/repro/kernels/mamba2_ssd/kernel.py:79", SSD_SOURCE),
     "rwkv6_scan_pallas":
         ("src/repro/kernels/rwkv6_scan/kernel.py:94", RWKV_SOURCE),
+    # Phase 16's pool path: the same launches at B = SERVE_SLOTS slots.
+    "reproject_match_fused/slots":
+        ("src/repro/kernels/reproject_match/fused.py:121", RM_SOURCE),
+    "int8_matmul_pallas/qconv/slots":
+        ("src/repro/kernels/int8_matmul/kernel.py:56", I8_SOURCE),
 }
 
 # Flash attention: the reference's gates (tests/test_kernels.py:182,196).
@@ -250,6 +283,17 @@ SSM_ARCHS = {"rwkv6-3b": ("rwkv6_scan_pallas", 8),
              "zamba2-2.7b": ("mamba2_ssd_pallas", 12)}
 HYBRID = "zamba2-2.7b"  # runs its shared attention on the flash kernel too
 SSM_NEW = 8
+# Phase 16: StreamServer over EPICConfig() (published widths): a pool of 32
+# slots, 24 live streams of 12 chunks, 4 closed and 4 admitted mid-run,
+# the adaptive-K ladder of the sparse TRD, and a tiered run.
+SERVE_SLOTS, SERVE_LIVE, SERVE_CHUNKS, SERVE_CHURN = 32, 24, 12, 4
+SERVE_LADDER = (8, 16, 24, 48)
+SERVE_TIERS = (8, 24)
+# Largest float difference a predicted depth track's served stream may
+# keep from its solo session on the card (integers must be equal): cuDNN
+# convolves a frame differently at batch 32 than at 1.  The readings
+# were 1.04e-06 (fp32) and 1.19e-07 (int8) on an H100.
+SERVE_FLOAT_TOL = 1e-5
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -271,6 +315,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def set_numerics(torch) -> None:
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # same convolutions each run
+    torch.backends.cudnn.benchmark = False
+
+
 def phase_build(torch) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -280,10 +331,7 @@ def phase_build(torch) -> None:
     from repro_torch.kernels.reproject_match.kernel import LIBRARY as rm_lib
     from repro_torch.kernels.rwkv6_scan.kernel import LIBRARY as rwkv_lib
 
-    torch.backends.cudnn.allow_tf32 = False  # cuDNN would convolve in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True  # same convolutions each run
-    torch.backends.cudnn.benchmark = False
+    set_numerics(torch)
     t0 = time.perf_counter()
     libs = (rm_lib, fa_lib, i8_lib, ssd_lib, rwkv_lib)
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
@@ -559,13 +607,15 @@ def device_profile(torch, fn):
 
 def device_launches_per_call(torch, fn, calls=5, tries=3):
     """``(device kernels per fn(), retakes)`` under ``torch.profiler``, over
-    ``calls`` calls.  A trace that recorded no device event at all is taken
-    again, up to ``tries`` times; ``retakes`` counts those, for the output
-    to show."""
+    ``calls`` calls of an ``fn`` that launches at least one kernel a call.
+    A trace that recorded fewer device events than calls (none at all, or
+    4 of 5 once, in an H100 run where the same call had recorded 1 a call
+    before) lost events, and is taken again, up to ``tries`` times;
+    ``retakes`` counts those, for the output to show."""
     for retakes in range(tries):
         launches = device_profile(
             torch, lambda: [fn() for _ in range(calls)])[1]
-        if launches:
+        if launches >= calls:
             break
     return launches / calls, retakes
 
@@ -645,7 +695,7 @@ def phase_times(torch, device):
               f"({ms / floor_ms:.2f}x the launch floor), plain "
               f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
               f"({bound_by}), {launches:g} device launch a call "
-              f"(empty traces retaken: {retakes})")
+              f"(short traces retaken: {retakes})")
     n, p, hw = RM_SCALE
     args, intr = make_inputs(torch, device, n, p, hw, SEED)
     for name, (k_fn, _) in rm_calls(torch, args, intr).items():
@@ -2178,6 +2228,479 @@ def phase_recurrent(torch, device, wrappers):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: multi-stream serving.
+# ---------------------------------------------------------------------------
+
+
+def slot_inputs(torch, device, slots, n, p=16, hw=128):
+    """Phase 2's entries for ``slots`` slots, each with its own entries,
+    transforms and frame (phase 2's frame rolled by the slot's index), the
+    intrinsics shared: ``(args with a leading slot axis, intr)``."""
+    per = []
+    for s in range(slots):
+        args, intr = make_inputs(torch, device, n, p, hw, SEED + 31 * s)
+        args[4] = torch.roll(args[4], shifts=s, dims=1).contiguous()
+        per.append(args)
+    return [torch.stack(xs) for xs in zip(*per)], intr
+
+
+def phase_serve_kernels(torch, device):
+    """(a) The pool's launches at B = 32 slots: ``rm_fused`` and
+    ``rm_scores`` (N = 192 entries a slot, 128x128 frames, window 32) and
+    the fused int8 convolution with one scale per image (the depth
+    network's eight layers, each slot's activations at another scale),
+    each one launch under vmap and bitwise equal to per-slot launches;
+    their times beside the plain version's (vmapped) and the bound (B
+    times one slot's).  Returns ``(errs, times)`` of the two pool rows."""
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.kernels.int8_matmul.qconv import (qconv_int8_pallas,
+                                                       qconv_int8_ref)
+    from repro_torch.kernels.reproject_match import fused, kernel, ref
+
+    b, n = SERVE_SLOTS, 192
+    args, intr = slot_inputs(torch, device, b, n)
+    one = [x[0] for x in args]
+    errs, times = {}, {}
+    for name, wrapper, plain in (
+            ("reproject_match_fused", fused.reproject_match_fused,
+             lambda *a: fused.reproject_match_fused_ref(
+                 *a, intr, window=32, tau=TAU, o_min=O_MIN, c_min=C_MIN)),
+            ("reproject_match_pallas", kernel.reproject_match_pallas,
+             lambda *a: ref.reproject_match_ref(*a, intr, 32))):
+        def call(*a, wrapper=wrapper):
+            if wrapper is fused.reproject_match_fused:
+                return wrapper(*a, intr, window=32, tau=TAU, o_min=O_MIN,
+                               c_min=C_MIN)
+            return wrapper(*a, intr, window=32)
+
+        batched_call = torch.func.vmap(call)
+        plain_call = torch.func.vmap(plain)
+        before = wrapper.launches
+        got = batched_call(*args)
+        torch.cuda.synchronize()
+        _need(wrapper.launches == before + 1,
+              f"{name}: {wrapper.launches - before} launches for {b} slots")
+        for s in range(b):
+            for x, y in zip(got, call(*(a[s] for a in args))):
+                _need(torch.equal(x[s], y),
+                      f"{name}: slot {s} of the batched launch differs from "
+                      "its own launch")
+        want = plain_call(*args)
+        err = max(float((x - y).abs().max()) for x, y in
+                  zip(got[:3], want[:3]))
+        _need(err <= BBOX_TOL, f"{name}: batched launch vs plain {err}")
+        ms = device_ms(torch, lambda: batched_call(*args), per_graph=20)
+        plain_ms = device_ms(torch, lambda: plain_call(*args), per_graph=5,
+                             replays=5)
+        one_ms, bound_by = bound(one, name == "reproject_match_fused")
+        launches, _ = device_launches_per_call(
+            torch, lambda: batched_call(*args))
+        _need(launches == 1, f"{name}: {launches} device launches for the "
+              f"batched call")
+        errs[name] = err
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b * one_ms,
+                           bound_by=bound_by)
+        print(f"[16a] {name} at B={b} slots x N={n}: one launch, every slot "
+              f"bitwise its own launch, max|err| vs plain {err:.3g}; "
+              f"{ms * 1e3:.2f} us ({ms / b * 1e3:.3f} us a slot), plain "
+              f"{plain_ms * 1e3:.1f} us, bound {b * one_ms * 1e3:.3f} us "
+              f"({bound_by})")
+
+    stream, _, models = main_path_inputs(torch, device, CHUNK)
+    q = quantised_models(torch, device, models).depth_model
+    rgb64 = depth_mod.resize_image(stream[0][:1], depth_mod.DEPTH_INPUT)
+    _, convs = depth_operands(torch, q, rgb64)
+    factors = torch.linspace(0.25, 4.0, b, device=device)
+    ms = plain_ms = 0.0
+    nbytes = nops = 0
+    for (layer, m, k, nn), ((x, _, qw, wscale, bias), kw) in zip(
+            DEPTH_GEMMS, convs):
+        xs = (x[None] * factors[:, None, None, None, None]).contiguous()
+
+        def conv(xi, qw=qw, wscale=wscale, bias=bias, kw=kw):
+            return qconv_int8_pallas(xi, xi.abs().amax(), qw, wscale, bias,
+                                     **kw)
+
+        def conv_plain(xi, qw=qw, wscale=wscale, bias=bias, kw=kw):
+            return qconv_int8_ref(xi, xi.abs().amax(), qw, wscale, bias,
+                                  **kw)
+
+        batched_call = torch.func.vmap(conv)
+        before = qconv_int8_pallas.launches
+        got = batched_call(xs)
+        torch.cuda.synchronize()
+        _need(qconv_int8_pallas.launches == before + 1,
+              f"qconv {layer}: not one launch for {b} slots")
+        for s in range(b):
+            _need(torch.equal(got[s], conv(xs[s])),
+                  f"qconv {layer}: slot {s} differs from its own launch")
+        want = torch.func.vmap(conv_plain)(xs)
+        _need(torch.equal(got, want),
+              f"qconv {layer}: batched launch differs from plain")
+        ms += device_ms(torch, lambda: batched_call(xs), per_graph=20)
+        plain_ms += device_ms(torch, lambda: torch.func.vmap(conv_plain)(xs),
+                              per_graph=5, replays=5)
+        # Each image and its scale read once, each output written once,
+        # the shared weights, scales and bias once.
+        nbytes += b * (4 * x.numel() + 4 * m * nn + 4) + qw.numel() + 4 * (
+            wscale.numel() + bias.numel())
+        nops += 2 * b * m * k * nn
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT8_OP_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    errs["int8_matmul_pallas/qconv"] = 0.0  # bitwise, checked above
+    times["int8_matmul_pallas/qconv"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[16a] qconv at B={b} slots, one scale per image (scales "
+          f"0.25-4x apart), the 8 layers of one frame: 8 launches, every "
+          f"slot bitwise its own launch and the plain version; "
+          f"{ms * 1e3:.2f} us ({ms / b * 1e3:.3f} us a slot), plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by})")
+    # rm_scores is not on the pool's path (its backend is "fused"): its
+    # numbers are printed above, its row stays phase 2's.
+    del errs["reproject_match_pallas"], times["reproject_match_pallas"]
+    return ({f"{k}/slots": v for k, v in errs.items()},
+            {f"{k}/slots": v for k, v in times.items()})
+
+
+def serve_feeds(torch, device, n, n_chunks, seed):
+    """``n`` seeded 128x128 streams of ``n_chunks`` chunks each, on the
+    card: lists of ``SensorChunk`` with the oracle depth track."""
+    import numpy as np
+
+    from repro_torch.api import SensorChunk
+    from repro_torch.data import synthetic
+
+    feeds = []
+    for i in range(n):
+        s, _ = synthetic.generate_stream(
+            np.random.default_rng(seed + i),
+            synthetic.StreamConfig(n_frames=n_chunks * CHUNK, hw=(128, 128)),
+            device=device)
+        feeds.append([SensorChunk(*(x[c * CHUNK:(c + 1) * CHUNK] for x in (
+            s.frames, s.poses, s.gazes, s.depth))) for c in range(n_chunks)])
+    return feeds
+
+
+def serve_run(torch, device, models, founders, late, tiers=None,
+              depth=True, on_tick=None):
+    """The serving phase's schedule through ``StreamServer``: the founders
+    admitted and streaming for half their chunks, then the first
+    ``SERVE_CHURN`` of them closed and the late joiners admitted, and the
+    rest streaming to the end.  Returns ``(server, served chunks by
+    stream, seconds of each tick, rung groups dispatched)``: a rung group
+    is one rung's body in a dispatch, which launches each kernel of the
+    step once a frame for all its slots."""
+    from repro_torch.api import EPICCompressor, SensorChunk
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve import ServerConfig, StreamServer
+
+    cfg = pipe.EPICConfig(prefilter_k=SERVE_LADDER[0])
+    srv = StreamServer(
+        EPICCompressor(cfg, models, device=device),
+        ServerConfig(capacity=SERVE_SLOTS, chunk_frames=CHUNK,
+                     k_ladder=SERVE_LADDER, eviction="lru", tiers=tiers,
+                     prewarm=tiers is not None))
+    served = {}
+    ticks = []
+    groups = [0]
+    rung_body = srv._rung_body
+
+    def counted_body(k):  # called once for each rung of each dispatch
+        groups[0] += 1
+        return rung_body(k)
+
+    srv._rung_body = counted_body
+
+    def submit(sid, chunk):
+        if not depth:
+            chunk = SensorChunk(*chunk[:3])
+        srv.submit(sid, chunk)
+        served.setdefault(sid, []).append(chunk)
+
+    half = SERVE_CHUNKS // 2
+    for i in range(len(founders)):
+        srv.admit(f"s{i}")
+    for t in range(SERVE_CHUNKS):
+        if t == half:
+            for i in range(SERVE_CHURN):
+                srv.close(f"s{i}")
+            for j in range(len(late)):
+                srv.admit(f"l{j}")
+        for i, feed in enumerate(founders):
+            if t < half or i >= SERVE_CHURN:
+                submit(f"s{i}", feed[t])
+        if t >= half:
+            for j, feed in enumerate(late):
+                submit(f"l{j}", feed[t - half])
+        if on_tick is not None and on_tick(srv, t):
+            continue
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        srv.tick()
+        ticks.append(time.perf_counter() - t0)  # ends in the readback
+    return srv, served, ticks, groups[0]
+
+
+def compare_solo(torch, device, models, srv, served, label, exact):
+    """Every live stream of ``srv`` against a solo ``EPICCompressor`` with
+    the same ladder fed the chunks it was served: ``k_trajectory`` and the
+    telemetry equal, and the state bitwise (``exact``) or its integer
+    leaves equal and its float leaves within ``SERVE_FLOAT_TOL``; returns
+    the largest float difference."""
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+
+    cfg = pipe.EPICConfig(prefilter_k=SERVE_LADDER[0])
+    worst, n_bitwise = 0.0, 0
+    for sid in srv.live_sessions:
+        solo = EPICCompressor(cfg, models, device=device,
+                              k_ladder=SERVE_LADDER)
+        state = solo.init()
+        processed = inserted = 0
+        for chunk in served[sid]:
+            state, st = solo.step(state, chunk)
+            processed += int(st.processed.sum())
+            inserted += int(st.n_inserted.sum())
+        tele = srv.telemetry(sid)
+        _need(list(tele.k_trajectory) == list(solo.k_trajectory),
+              f"{label} {sid}: k_trajectory {list(tele.k_trajectory)} vs "
+              f"solo {list(solo.k_trajectory)}")
+        _need((tele.n_processed, tele.n_inserted) == (processed, inserted),
+              f"{label} {sid}: served counters differ from the solo run")
+        mine = state_leaves(srv.state(sid))
+        theirs = state_leaves(state)
+        same = [torch.equal(a, b) for a, b in zip(mine, theirs)]
+        n_bitwise += all(same)
+        for i, (a, b, eq) in enumerate(zip(mine, theirs, same)):
+            if a.dtype.is_floating_point:
+                worst = max(worst, float((a - b).abs().max()))
+            else:
+                _need(eq, f"{label} {sid}: integer state leaf {i} differs "
+                      "from solo")
+        _need(not exact or all(same), f"{label} {sid}: state leaves "
+              f"{[i for i, eq in enumerate(same) if not eq]} not bitwise "
+              "the solo session's")
+    _need(worst <= SERVE_FLOAT_TOL, f"{label}: a float state leaf differs "
+          f"from solo by {worst:.3g} (limit {SERVE_FLOAT_TOL:g})")
+    print(f"[16b] {label}: {len(srv.live_sessions)} live streams against "
+          f"solo sessions: k_trajectory, counters and integer state equal, "
+          f"{n_bitwise} bitwise, largest float difference {worst:.3g} "
+          f"(limit {SERVE_FLOAT_TOL:g})")
+    return worst
+
+
+def phase_serve(torch, device, card):
+    """(b) ``StreamServer`` over ``EPICCompressor(EPICConfig(), ...)`` at
+    published widths, on the oracle, fp32 and int8 depth tracks, with a
+    tiered run; (c) the readings.  Returns the pool rows' launches."""
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
+    from repro_torch.kernels.reproject_match import fused
+
+    from repro_torch.core import pipeline as pipe
+
+    _, _, models = main_path_inputs(torch, device, CHUNK)
+    # The oracle track runs no network (the chunk's depth, every patch
+    # salient): cuDNN may convolve a frame differently at batch 32 than
+    # at 1, so only a track without convolutions can be held bitwise.
+    oracle = pipe.EPICModels()
+    qmodels = quantised_models(torch, device, models)
+    _need(qmodels.depth_model.matmul_backend == "pallas",
+          "int8 track: the depth network is not on the fused launch")
+    founders = serve_feeds(torch, device, SERVE_LIVE, SERVE_CHUNKS,
+                           SEED + 1000)
+    late = serve_feeds(torch, device, SERVE_CHURN, SERVE_CHUNKS // 2,
+                       SEED + 2000)
+    wrappers = kernel_wrappers()
+    counted = {"reproject_match_fused/slots": 0,
+               "int8_matmul_pallas/qconv/slots": 0}
+
+    def counted_run(label, run_models, per_frame_qconv, **kw):
+        """One serving run with the counts set to 0 just before it and read
+        just after its last tick (before any solo session runs): each
+        kernel of the step launches once a frame for each rung group."""
+        for w in wrappers.values():
+            w.launches = 0
+        srv, served, ticks, groups = serve_run(
+            torch, device, run_models, founders, late, **kw)
+        rm = wrappers["reproject_match_fused"].launches
+        qc = wrappers["int8_matmul_pallas/qconv"].launches
+        _need(rm == CHUNK * groups and qc == per_frame_qconv * CHUNK * groups,
+              f"{label}: {rm} rm_fused and {qc} qconv launches for {groups} "
+              f"rung groups of {CHUNK} frames")
+        counted["reproject_match_fused/slots"] += rm
+        counted["int8_matmul_pallas/qconv/slots"] += qc
+        print(f"[16b] {label}: {len(ticks)} ticks, {groups} rung groups "
+              f"({groups / len(ticks):.2f} a tick), "
+              f"{srv.server_counters()['n_dispatches']} dispatches; launches "
+              f"in the run: rm_fused {rm} ({rm / (CHUNK * groups):g} a frame "
+              f"of each rung group, {rm / (CHUNK * len(ticks)):.2f} a "
+              f"tick-frame), qconv {qc} ({qc / (CHUNK * groups):g} a frame "
+              f"of each rung group)")
+        return srv, served
+
+    flat, served = counted_run("oracle depth, flat", oracle, 0)
+    counts = dict(flat.server_counters())
+    _need(counts["n_evicted"] == SERVE_CHURN
+          and counts["n_admitted"] == SERVE_LIVE + SERVE_CHURN,
+          f"oracle run: churn not as scheduled: {counts}")
+    rungs = sorted({k for sid in flat.live_sessions
+                    for k in flat.telemetry(sid).k_trajectory})
+    print(f"[16b] oracle depth, flat pool of {SERVE_SLOTS}: {counts}; rungs "
+          f"used {rungs}; programs {flat.step_cache_sizes()}")
+    _need(all(v == 1 for v in flat.step_cache_sizes().values()),
+          "oracle run: a step program was built twice")
+    compare_solo(torch, device, oracle, flat, served, "oracle depth",
+                 exact=True)
+
+    tiered, _ = counted_run("oracle depth, tiered", oracle, 0,
+                            tiers=SERVE_TIERS)
+    for sid in flat.live_sessions:
+        _need(all(torch.equal(a, b) for a, b in zip(
+            state_leaves(tiered.state(sid)), state_leaves(flat.state(sid))))
+            and list(tiered.telemetry(sid).k_trajectory)
+            == list(flat.telemetry(sid).k_trajectory),
+            f"tiered {sid}: differs from the flat pool")
+    tc = tiered.server_counters()
+    _need(all(v == 1 for v in tiered.step_cache_sizes().values()),
+          "tiered run: a step program was built twice")
+    print(f"[16b] oracle depth, tiers {SERVE_TIERS}: bitwise the flat pool "
+          f"for every live stream; {tc['n_migrations']} migrations, "
+          f"{tc['n_dispatches']} dispatches (flat {counts['n_dispatches']}); "
+          f"programs {tiered.step_cache_sizes()}")
+
+    for label, run_models, qconvs in (("fp32 depth", models, 0),
+                                      ("int8 depth", qmodels,
+                                       len(DEPTH_GEMMS))):
+        srv, served = counted_run(label, run_models, qconvs, depth=False)
+        compare_solo(torch, device, run_models, srv, served, label,
+                     exact=False)
+    _need(all(counted.values()), f"a pool kernel was never launched: "
+          f"{counted}")
+    print(f"[16b] launches in the four serving runs, each counted from 0 "
+          f"just before its first tick to just after its last: {counted}")
+
+    # (c) Readings, on the oracle track's flat pool: a second run for the
+    # times, a late tick's dispatch under sync-debug mode "error" and the
+    # next tick profiled.
+    def probe(srv, t):
+        if t == SERVE_CHUNKS - 3:
+            ready = srv._pop_ready()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                inflight = srv._dispatch(ready)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            srv._finish(*inflight)
+            return True
+        if t == SERVE_CHUNKS - 2:
+            probe.busy_us, probe.launches, _ = device_profile(torch, srv.tick)
+            _need(probe.launches > 0, "the profiled tick recorded no device "
+                  "launch")
+            return True
+        return False
+
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    timed, _, ticks, _ = serve_run(torch, device, oracle, founders, late,
+                                   on_tick=probe)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    frames = SERVE_LIVE * CHUNK * len(ticks)
+    steady = sorted(ticks[1:])
+    med = steady[len(steady) // 2]
+    p99 = steady[min(len(steady) - 1, int(0.99 * len(steady)))]
+    print(f"[16c] {card}: sync-debug mode \"error\" around a tick's "
+          f"_dispatch: no host sync")
+    print(f"[16c] {card}: {SERVE_LIVE} live streams, {len(ticks)} timed "
+          f"ticks of {CHUNK} frames: {frames / sum(ticks):.1f} frames/s "
+          f"aggregate ({frames / sum(ticks) / SERVE_LIVE:.2f} per stream); "
+          f"tick latency median {med * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms "
+          f"(first tick {ticks[0] * 1e3:.1f} ms, not in the median)")
+    idle = 1 - probe.busy_us * 1e-6 / med
+    print(f"[16c] {card}: device idle share {idle:.3f} (device busy "
+          f"{probe.busy_us / 1e3:.2f} ms in a profiled tick, against the "
+          f"median tick; {probe.launches} device launches, "
+          f"{probe.launches / CHUNK:.1f} per tick-frame); peak device memory "
+          f"{peak / 2**20:.1f} MiB for the pool, {peak / SERVE_SLOTS / 2**20:.2f}"
+          f" MiB a slot")
+
+    # Launches per tick-frame at 8 and at 32 live streams: one rung, the
+    # same step program, only the mask differs.
+    from repro_torch.api import EPICCompressor
+    from repro_torch.serve import ServerConfig, StreamServer
+
+    srv = StreamServer(EPICCompressor(pipe.EPICConfig(), oracle,
+                                      device=device),
+                       ServerConfig(capacity=SERVE_SLOTS, chunk_frames=CHUNK))
+    per = {}
+    feeds = founders + late + founders[:SERVE_SLOTS - SERVE_LIVE - SERVE_CHURN]
+    few = SERVE_SLOTS // 4
+    for live in (few, SERVE_SLOTS):
+        for i in range(len(srv.live_sessions), live):
+            srv.admit(i)
+        for t in range(3):
+            for i in range(live):
+                srv.submit(i, feeds[i][t])
+            before = fused.reproject_match_fused.launches
+            if t == 0:
+                srv.tick()
+                continue
+            # Two profiled ticks, the larger count kept: a trace can lose
+            # events (see device_launches_per_call), never gain them.
+            _, launches, _ = device_profile(torch, srv.tick)
+            _need(launches > 0, f"{live} live: the profiled tick recorded "
+                  "no device launch")
+            _need(fused.reproject_match_fused.launches - before == CHUNK,
+                  f"{live} live: not one rm_fused launch a frame")
+            per[live] = max(per.get(live, 0), launches / CHUNK)
+    _need(per[few] == per[SERVE_SLOTS], f"device launches per tick-frame "
+          f"differ with the live count: {per}")
+    _need(srv.step_cache_sizes() == {None: 1},
+          f"programs {srv.step_cache_sizes()}")
+    print(f"[16c] {card}: device launches per tick-frame at {few} live "
+          f"streams {per[few]:.1f}, at {SERVE_SLOTS} {per[SERVE_SLOTS]:.1f} (one "
+          f"rm_fused launch a frame for all slots; qconv launches in the int8 "
+          f"run {counted['int8_matmul_pallas/qconv/slots']})")
+    return counted
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_process() -> dict:
+    """Phase 16 in a process of its own (``chip_smoke.py --serve``), on the
+    libraries phase 1 built: after the earlier phases, ``torch.profiler``
+    in this process recorded no device event for phase 16's calls (a
+    fresh process records them; the cause was not found).  Its lines pass
+    through; its last line is its results as JSON."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--serve"], stdout=subprocess.PIPE, text=True,
+                         timeout=900)
+    lines = out.stdout.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    _need(out.returncode == 0 and lines,
+          f"phase 16 failed (exit {out.returncode})")
+    return json.loads(lines[-1])["serve"]
+
+
+def serve_main() -> int:
+    """``chip_smoke.py --serve``: phase 16 alone; prints its results as
+    one JSON line, last."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    set_numerics(torch)
+    errs, times = phase_serve_kernels(torch, device)
+    launches = phase_serve(torch, device, card_line())
+    print(json.dumps({"serve": {"errs": errs, "times": times,
+                                "launches": launches}}))
+    return 0
 
 
 def main() -> int:
@@ -2217,6 +2740,10 @@ def main() -> int:
     errs.update(phase_scans(torch, device))
     times.update(phase_scan_times(torch, device))
     launches.update(phase_recurrent(torch, device, kernel_wrappers()))
+    serve = phase_serve_process()
+    errs.update(serve["errs"])
+    times.update(serve["times"])
+    launches.update(serve["launches"])
 
     rows = []
     for name, (replaces, source) in KERNELS.items():
@@ -2236,4 +2763,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(serve_main() if sys.argv[1:] == ["--serve"] else main())

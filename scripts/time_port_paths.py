@@ -3,7 +3,7 @@
 (Mamba-2 SSD, RWKV6), with the paths that run them, on one CUDA card.
 
     python3 scripts/time_port_paths.py [--src DIR] [--label NAME]
-        [--paths rm,int8,ssd,rwkv] [--prefills N]
+        [--paths rm,int8,solo,ssd,rwkv] [--prefills N] [--sessions N]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that two trees, say a parent commit unpacked beside this one and this
@@ -25,7 +25,12 @@ Prints the card's name and power limit, then one JSON line:
   replay (``rm_pallas_k24_us``: the per-entry launch on the tiled launch's
   inputs, K = 24, timed right after it); ``..._scale_us``: the same at
   N = 3072 and a 512x512 frame (scale, not the main path); ``..._launches``: device kernels of one call
-  at the main shape under ``torch.profiler``;
+  at the main shape under ``torch.profiler``; ``rm_fused_host_us``: host
+  time of one solo ``reproject_match_fused`` call at the main shape (the
+  mean of 2000 calls in a row, which the host, not the card, paces) and,
+  where the tree has it, ``rm_fused_op_host_us``: the same launch through
+  the custom op ``repro_torch::rm_fused`` on a slot of one (the serving
+  pool's route);
 * ``i8_products_us``: ``int8_matmul_pallas`` at the depth network's 8
   shapes of one frame (random int8 operands), CUDA-graph replay between
   CUDA events (``chip_smoke.device_ms``), summed;
@@ -34,6 +39,14 @@ Prints the card's name and power limit, then one JSON line:
   replay, and its device kernels counted under ``torch.profiler``;
 * ``int8_fps``: the int8 compressor (``EPICConfig()``, 96 frames in chunks
   of 8, as ``chip_smoke.py`` phase 11), frames/s on the host clock;
+* ``solo_{fp32,int8}_fps``: one solo ``EPICCompressor`` session
+  (``EPICConfig()``, the default ``"fused"`` backend, the depth and HIR
+  networks; fp32 depth as ``chip_smoke.py`` phase 4's first run, int8
+  depth on the fused launch as phase 11's), 96 frames in chunks of 8,
+  frames/s on the host clock for each of ``--sessions`` runs after a
+  warm-up chunk; ``solo_{fp32,int8}_chunk_ms``: the median step of one
+  chunk in a run that synchronises after every chunk (what a live stream
+  waits for);
 * ``ssd_ms`` / ``ssd_max_abs_err``: ``mamba2_ssd_pallas`` at x (4, 80,
   1024, 64) float32 in the model's (B, T, H, P) layout, N 64, chunk 64,
   and its largest difference from ``mamba2_ssd_chunked``;
@@ -67,6 +80,7 @@ def main() -> int:
     parser.add_argument("--label", default="")
     parser.add_argument("--prefills", type=int, default=3)
     parser.add_argument("--paths", default="int8,ssd,rwkv")
+    parser.add_argument("--sessions", type=int, default=5)
     args = parser.parse_args()
     paths = set(args.paths.split(","))
 
@@ -78,7 +92,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
     import chip_smoke as smoke
-    from repro_torch.api import EPICCompressor
+    from repro_torch.api import EPICCompressor, SensorChunk, iter_chunks
     from repro_torch.configs import get_config
     from repro_torch.core import depth as depth_mod
     from repro_torch.core import pipeline as pipe
@@ -140,6 +154,16 @@ def main() -> int:
         del params, model
         torch.cuda.empty_cache()
 
+    def host_us(call, key, calls=2000):
+        for _ in range(100):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) / calls * 1e6
+
     if "rm" in paths:
         out["launch_floor_us"] = smoke.launch_floor_ms(torch, device) * 1e3
         for label, (n_main, p, hw), per_graph in (
@@ -156,6 +180,16 @@ def main() -> int:
                 if not label:
                     out[f"rm_{short}_launches"] = smoke.device_profile(
                         torch, call)[1]
+                if short == "fused" and not label:
+                    host_us(call, "rm_fused_host_us")
+                    op = getattr(sys.modules[
+                        "repro_torch.kernels.reproject_match.fused"],
+                        "rm_fused", None)
+                    if op is not None:
+                        host_us(lambda: op(
+                            *(x[None] for x in rm_args), intr.f, intr.cx,
+                            intr.cy, 32, smoke.TAU, smoke.O_MIN,
+                            smoke.C_MIN), "rm_fused_op_host_us")
                 if short == "tiled" and not label:  # on the same inputs
                     out["rm_pallas_k24_us"] = smoke.device_ms(
                         torch, smoke.rm_calls(torch, rm_args, intr)[
@@ -187,6 +221,28 @@ def main() -> int:
                                              for x in stream), device)
         secs = smoke.run_session(torch, comp, stream, device)[-1]
         out["int8_fps"] = smoke.N_FRAMES / secs
+        del comp, qmodels, models, stream
+    if "solo" in paths:
+        stream, _, models = smoke.main_path_inputs(torch, device)
+        qmodels = smoke.quantised_models(torch, device, models)
+        qmodels.depth_model.matmul_backend = "pallas"
+        for key, run_models in (("fp32", models), ("int8", qmodels)):
+            comp = EPICCompressor(pipe.EPICConfig(), run_models,
+                                  device=device)
+            smoke.run_session(torch, comp, tuple(x[:smoke.CHUNK]
+                                                 for x in stream), device)
+            out[f"solo_{key}_fps"] = [
+                smoke.N_FRAMES / smoke.run_session(torch, comp, stream,
+                                                   device)[-1]
+                for _ in range(args.sessions)]
+            state, steps = comp.init(), []
+            for chunk in iter_chunks(SensorChunk(*stream), smoke.CHUNK):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                state, _ = comp.step(state, chunk)
+                torch.cuda.synchronize(device)
+                steps.append((time.perf_counter() - t0) * 1e3)
+            out[f"solo_{key}_chunk_ms"] = sorted(steps)[len(steps) // 2]
         del comp, qmodels, models, stream
     if "ssd" in paths:
         scan("ssd", smoke.ssd_inputs, mamba2_ssd_pallas, mamba2_ssd_chunked,

@@ -6,6 +6,7 @@
   BaselineConfig, BaselineState, BaselineFrameStats,
   FullVideo, TemporalDown, SpatialDown, GazeCrop
                                               (compressor, loaded lazily)
+  StreamPool                                  (pool, loaded lazily)
   the registries' get/register/available/validate functions.
 """
 
@@ -43,16 +44,21 @@ from repro_torch.api.types import (  # noqa: F401
     iter_chunks,
 )
 
-_LAZY = (
-    "Compressor", "EPICCompressor", "run_session", "BaselineConfig",
-    "BaselineState", "BaselineFrameStats", "FullVideo", "TemporalDown",
-    "SpatialDown", "GazeCrop",
-)
+_LAZY = {
+    **dict.fromkeys(
+        ("Compressor", "EPICCompressor", "run_session", "BaselineConfig",
+         "BaselineState", "BaselineFrameStats", "FullVideo", "TemporalDown",
+         "SpatialDown", "GazeCrop"),
+        "repro_torch.api.compressor",
+    ),
+    "StreamPool": "repro_torch.api.pool",
+}
 
 
 def __getattr__(name: str):
-    if name not in _LAZY:
+    mod = _LAZY.get(name)
+    if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    from repro_torch.api import compressor
+    import importlib
 
-    return getattr(compressor, name)
+    return getattr(importlib.import_module(mod), name)

@@ -148,6 +148,22 @@ class EPICCompressor:
         self._ctl.update(overflow, peak_full)
         return state, stats
 
+    def session_body(self):
+        """The per-session chunk step for a slot-batched pool:
+        ``body(state, frames, poses, gazes, depth) -> (state, stats)`` on
+        tensors already on the device, with the bypass gate in its select
+        form and the graph built once, so that a call makes no host sync and
+        ``torch.func.vmap`` batches it over the slots.  An adaptive-K
+        compressor has none: its rung moves on the host between chunks."""
+        if self._ctl is not None:
+            raise ValueError(
+                "an adaptive-K compressor walks its rung on the host between "
+                "chunks and has no batchable step; serve adaptive streams "
+                "through repro_torch.serve.StreamServer("
+                "ServerConfig(k_ladder=...))"
+            )
+        return pipe.scan_body(self.cfg, self.models, self.device)
+
     def _scan(self, cfg, state, chunk):
         return pipe.scan_frames(
             state,
@@ -289,6 +305,22 @@ class _StreamingBaseline:
             chunk.depth,
         )
         return self._from_graph_state(graph, gstate), stats
+
+    def session_body(self):
+        """The per-session chunk step for a slot-batched pool (see
+        :meth:`EPICCompressor.session_body`): the graph built once, no host
+        sync."""
+        graph = self._graph()
+
+        @torch.no_grad()
+        def body(state, frames, poses, gazes, depth):
+            gstate, stats = graph.scan(
+                self._to_graph_state(graph, state), frames, poses, gazes,
+                depth,
+            )
+            return self._from_graph_state(graph, gstate), stats
+
+        return body
 
     def export(self, state: BaselineState) -> ret.RetainedPatches:
         return state.rp

@@ -9,9 +9,11 @@ Stages are built by registry name, so new stages plug in without
 editing the loop.
 
 Two framework differences: the ``lax.cond`` of :class:`Gated` is a host
-``if`` on the gate (one device-to-host sync per frame), and the
-``lax.scan`` of :meth:`StageGraph.scan` is a Python loop over the chunk's
-frames.
+``if`` on the gate (one device-to-host sync per frame), or, in its select
+form, the inner stages run and ``torch.where`` picks their results or the
+passed-through ones (what ``vmap`` of ``lax.cond`` computes; the serving
+pool's slot-batched step uses it); and the ``lax.scan`` of
+:meth:`StageGraph.scan` is a Python loop over the chunk's frames.
 """
 
 from __future__ import annotations
@@ -75,6 +77,27 @@ class FrameStage(Protocol):
         ...
 
 
+def where_tree(pred: Tensor, on_true: Any, on_false: Any) -> Any:
+    """``torch.where(pred, a, b)`` leaf by leaf over two trees of the same
+    structure (tensors, ``None``, tuples, NamedTuples, dicts)."""
+    if on_true is None:
+        return None
+    if isinstance(on_true, Tensor):
+        return torch.where(pred, on_true, on_false)
+    if isinstance(on_true, dict):
+        if on_true.keys() != on_false.keys():
+            raise ValueError(
+                f"where_tree needs the same keys, got {sorted(on_true)} and "
+                f"{sorted(on_false)}"
+            )
+        return {k: where_tree(pred, on_true[k], on_false[k])
+                for k in on_true}
+    items = [where_tree(pred, a, b) for a, b in zip(on_true, on_false)]
+    if hasattr(on_true, "_fields"):  # a NamedTuple
+        return type(on_true)(*items)
+    return type(on_true)(items)
+
+
 @register_combinator("gated")
 class Gated:
     """Combinator: run ``stages`` only when ``ctx.process`` is true.
@@ -83,15 +106,25 @@ class Gated:
     pass through and ``skip_stats(states, ctx)`` supplies the stats the
     skipped stages would have emitted.  Only the inner states and stats
     leave the gate.  Reading the gate costs one device-to-host sync.
+
+    ``select=True`` is the gate without a host read: the inner stages
+    always run, and their states and stats are chosen with ``torch.where``
+    against the passed-through states and ``skip_stats`` — the same values,
+    with no sync, so the step can be vmapped over a batch of sessions (the
+    serving pool's step; ``vmap`` of the reference's ``lax.cond`` computes
+    this select too).
     """
 
     def __init__(
         self,
         stages: Sequence[FrameStage],
         skip_stats: Callable[[Tuple[Any, ...], FrameCtx], Dict[str, Any]],
+        *,
+        select: bool = False,
     ):
         self.stages = tuple(stages)
         self.skip_stats = skip_stats
+        self.select = select
         self.name = "gated[" + ",".join(s.name for s in self.stages) + "]"
 
     def init(self) -> Tuple[Any, ...]:
@@ -100,16 +133,20 @@ class Gated:
     def apply(
         self, states: Tuple[Any, ...], ctx: FrameCtx
     ) -> Tuple[Tuple[Any, ...], FrameCtx]:
-        if bool(ctx.process):
-            c = ctx._replace(stats={})
-            out = []
-            for stage, st in zip(self.stages, states):
-                st, c = stage.apply(st, c)
-                out.append(st)
-            states, delta = tuple(out), c.stats
-        else:
+        if not self.select and not bool(ctx.process):
             delta = self.skip_stats(states, ctx)
-        return states, ctx._replace(stats={**ctx.stats, **delta})
+            return states, ctx._replace(stats={**ctx.stats, **delta})
+        c = ctx._replace(stats={})
+        out = []
+        for stage, st in zip(self.stages, states):
+            st, c = stage.apply(st, c)
+            out.append(st)
+        ran, delta = tuple(out), c.stats
+        if self.select:
+            ran = where_tree(ctx.process, ran, states)
+            delta = where_tree(ctx.process, delta,
+                               self.skip_stats(states, ctx))
+        return ran, ctx._replace(stats={**ctx.stats, **delta})
 
 
 def _stack(items: Sequence[Any]) -> Any:

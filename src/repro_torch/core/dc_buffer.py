@@ -102,14 +102,15 @@ def bump_popularity(
 
     Several patches matching one entry accumulate (a segment sum).
     """
-    inc = torch.zeros_like(buf.popularity).index_add_(
+    # Out-of-place index_add: the slot-batched step vmaps this body.
+    inc = torch.zeros_like(buf.popularity).index_add(
         0, entry_idx, mask.to(buf.popularity.dtype)
     )
     out = buf._replace(popularity=buf.popularity + inc)
     if t_now is not None:
         hits = torch.zeros(
             buf.valid.shape, dtype=torch.int32, device=buf.valid.device
-        ).index_add_(0, entry_idx, mask.to(torch.int32))
+        ).index_add(0, entry_idx, mask.to(torch.int32))
         t_now = torch.as_tensor(t_now, dtype=torch.float32,
                                 device=buf.t_last.device)
         out = out._replace(

@@ -36,8 +36,12 @@ class Intrinsics(NamedTuple):
 
     @staticmethod
     def create(f: float, cx: float, cy: float, device) -> "Intrinsics":
-        t = torch.tensor([f, cx, cy], dtype=torch.float32, device=device)
-        return Intrinsics(t[0], t[1], t[2])
+        """Each value filled on ``device`` (no host-to-device copy, so no
+        host sync on the card)."""
+        return Intrinsics(*(
+            torch.full((), v, dtype=torch.float32, device=device)
+            for v in (f, cx, cy)
+        ))
 
 
 def pose_from_rt(rot: Tensor, trans: Tensor) -> Tensor:

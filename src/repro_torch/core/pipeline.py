@@ -142,13 +142,15 @@ def _zero_tsrc_stats(buf: dcb.DCBuffer) -> tsrc_mod.TSRCStats:
 
 
 def build_epic_graph(
-    cfg: EPICConfig, models: EPICModels, device
+    cfg: EPICConfig, models: EPICModels, device, *, select_gate: bool = False
 ) -> StageGraph:
     """Compose EPIC's per-frame pipeline as a stage graph (Figure 3c).
 
     ``bypass`` runs on every frame; ``depth`` → ``saliency`` → ``tsrc``
-    run behind its gate.  The graph state holds exactly the
-    :class:`EPICState` fields ``(bypass, buf, t)``.
+    run behind its gate (a host ``if``; ``select_gate=True``: the select
+    form of :class:`~repro_torch.api.stages.Gated`, no host sync).  The
+    graph state holds exactly the :class:`EPICState` fields ``(bypass,
+    buf, t)``.
     """
     make = _registry.make_stage
     gated_stages = [
@@ -174,6 +176,7 @@ def build_epic_graph(
         skip_stats=lambda states, ctx: {
             "tsrc": _zero_tsrc_stats(states[tsrc_idx])
         },
+        select=select_gate,
     )
 
     def finalize(ctx) -> FrameStats:
@@ -239,6 +242,26 @@ def scan_frames(
         _to_graph_state(graph, state), frames, poses, gazes, depth_gt
     )
     return _from_graph_state(graph, gstate), stats
+
+
+def scan_body(cfg: EPICConfig, models: EPICModels, device):
+    """:func:`scan_frames` as a function of tensors only, for the serving
+    pool's slot-batched step (``torch.func.vmap`` over it): the graph is
+    built once, here (its intrinsics are made now, not on every chunk),
+    and its gate is the select form, so a call makes no host sync.
+    ``body(state, frames, poses, gazes, depth_gt) -> (state, stats)``."""
+    graph = build_epic_graph(cfg, models, device, select_gate=True)
+
+    @torch.no_grad()
+    def body(state, frames, poses, gazes, depth_gt):
+        if models.depth_model is None and depth_gt is None:
+            raise ValueError("need depth_gt when no depth model is given")
+        gstate, stats = graph.scan(
+            _to_graph_state(graph, state), frames, poses, gazes, depth_gt
+        )
+        return _from_graph_state(graph, gstate), stats
+
+    return body
 
 
 def compress_stream(

@@ -192,12 +192,16 @@ def tsrc_step(
             idx_c, matched_c = dcb.newest_match(
                 match_c, buf.t[idx], cand_valid
             )
-            matched = torch.zeros(n_patches, dtype=torch.bool, device=device)
-            matched[pc.idx] = matched_c & pc.real
-            chosen = torch.zeros(n_patches, dtype=torch.int64, device=device)
-            chosen[pc.idx] = torch.where(
+            # Out-of-place scatters (the slots of pc.idx are distinct), so
+            # the slot-batched step can vmap this body.
+            matched = torch.zeros(
+                n_patches, dtype=torch.bool, device=device
+            ).scatter(0, pc.idx, matched_c & pc.real)
+            chosen = torch.zeros(
+                n_patches, dtype=torch.int64, device=device
+            ).scatter(0, pc.idx, torch.where(
                 pc.real, idx[idx_c], torch.zeros_like(idx_c)
-            )
+            ))
             n_patch_overflow = pc.n_overflow
             n_patch_checked = pc.n_compacted
         else:

@@ -121,6 +121,14 @@ class CudaLibrary:
         return self._lib
 
 
+def check_contiguous(**tensors) -> None:
+    """Raise unless every tensor a launch reads through its pointer is
+    contiguous."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")
+
+
 def check(err: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:

@@ -13,7 +13,10 @@
 // what the JAX package's _qconv + bias + ReLU (src/repro/core/depth.py)
 // computes for a dense 3x3 or pointwise layer, from the float32 NHWC
 // activation x to the float32 NHWC output:
-//   sx = max(xscale, 1e-8) * float32(1/127)      (xscale read on the card)
+//   sx = max(xscale, 1e-8) * float32(1/127)      (xscale read on the card:
+//                                                 one per tensor, or one per
+//                                                 image for the slot-batched
+//                                                 serving step)
 //   q  = clamp(rint(x / sx), -127, 127)           (IEEE division, ties even)
 //   y  = relu(((float(sum_k q w) * sx) * wscale[c]) + b[c])
 // The im2col row of each output pixel is formed in the staging's
@@ -86,6 +89,18 @@ __device__ __forceinline__ uint32_t byte_at(int8_t v, int i) {
   return (uint32_t)(uint8_t)v << (8 * i);
 }
 
+// The activation scale of image img: clamp_min(1e-8) (NaN stays NaN, as in
+// PyTorch), then the product with float32(1/127) that XLA compiles the
+// reference's division into.  xscale holds one scale for the whole batch
+// (per_image = 0, the per-tensor scale of one forward) or one per image
+// (per_image = 1: the serving pool's slot-batched step, where each slot's
+// frame keeps the scale a solo forward would take).
+__device__ __forceinline__ float image_scale(const float* __restrict__ xscale,
+                                             int per_image, int img) {
+  const float xs = __ldg(xscale + (per_image ? img : 0));
+  return __fmul_rn(xs < 1e-8f ? 1e-8f : xs, kInv127);
+}
+
 // quantize_activation for one element: IEEE division, rint (ties to even).
 __device__ __forceinline__ uint32_t quantize(float v, float sx, int i) {
   float q = rintf(__fdiv_rn(v, sx));
@@ -151,7 +166,8 @@ __device__ void stage_a_matrix(uint32_t* as, int sw,
 // (dy, dx, c); taps in the SAME padding are zeros.  vec4: cin % 4 == 0 and
 // x 16-byte aligned, so a word's four channels are one float4.
 __device__ void stage_a_conv(uint32_t* as, int sw, const float* __restrict__ x,
-                             float sx, const ConvShape& s, int m, int k,
+                             float sx0, const float* __restrict__ xscale,
+                             int per_image, const ConvShape& s, int m, int k,
                              int row0, int k0, int kt, bool vec4) {
   const int words = kt / 4;
   const int hw_out = s.ho * s.wo;
@@ -161,6 +177,7 @@ __device__ void stage_a_conv(uint32_t* as, int sw, const float* __restrict__ x,
     uint32_t v = 0;
     if (gr < m) {
       const int img = gr / hw_out, rem = gr - img * hw_out;
+      const float sx = per_image ? image_scale(xscale, 1, img) : sx0;
       const int oy = rem / s.wo, ox = rem - oy * s.wo;
       const int iy0 = oy * s.stride - s.pad_t, ix0 = ox * s.stride - s.pad_l;
       const float* xi = x + (int64_t)img * s.h * s.w * s.cin;
@@ -276,21 +293,21 @@ qconv_int8_kernel(const float* __restrict__ x, const float* __restrict__ xscale,
                   const int8_t* __restrict__ w,
                   const float* __restrict__ wscale,
                   const float* __restrict__ bias, float* __restrict__ y,
-                  ConvShape s, int m, int k, int n, int relu, int vec4) {
+                  ConvShape s, int m, int k, int n, int relu, int per_image,
+                  int vec4) {
   constexpr int NTW = NT > 1 ? NT / 2 : 1;
   __shared__ __align__(16) uint32_t as[kBM * kMaxSW];
   __shared__ __align__(16) uint32_t bs[8 * NT * kMaxSW];
   const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * 8 * NT;
-  // clamp_min(1e-8) (NaN stays NaN, as in PyTorch), then the product with
-  // float32(1/127) that XLA compiles the reference's division into.
-  const float xs = *xscale;
-  const float sx = __fmul_rn(xs < 1e-8f ? 1e-8f : xs, kInv127);
+  const int hw_out = s.ho * s.wo;
+  const float sx0 = image_scale(xscale, 0, 0);  // the per-tensor scale
   int32_t acc[NTW][4];
   int mrow, ncol0;
   const bool active = main_loop<NT>(
       acc, as, bs, w, k, n, row0, col0, mrow, ncol0,
       [=](uint32_t* st, int sw, int k0, int kt) {
-        stage_a_conv(st, sw, x, sx, s, m, k, row0, k0, kt, vec4 != 0);
+        stage_a_conv(st, sw, x, sx0, xscale, per_image, s, m, k, row0, k0,
+                     kt, vec4 != 0);
       });
   if (!active) return;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -301,6 +318,8 @@ qconv_int8_kernel(const float* __restrict__ x, const float* __restrict__ xscale,
       const int gr = row0 + mrow + g + 8 * (i >> 1);
       const int gc = col0 + ncol0 + 8 * j + 2 * t + (i & 1);
       if (gr < m && gc < n) {
+        const float sx =
+            per_image ? image_scale(xscale, 1, gr / hw_out) : sx0;
         float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[j][i]), sx),
                             wscale[gc]);
         v = __fadd_rn(v, bias[gc]);
@@ -347,11 +366,13 @@ int int8_matmul_launch(const void* a, const void* b, void* c, int m, int k,
 }
 
 // x (batch, h, w, cin) float32 NHWC; w (ks ks cin, cout) int8; y (batch,
-// ho, wo, cout) float32 with ho = ceil(h / stride), wo = ceil(w / stride).
+// ho, wo, cout) float32 with ho = ceil(h / stride), wo = ceil(w / stride);
+// xscale one float (per_image = 0) or batch floats, image i's scale at i
+// (per_image = 1).  Output row r belongs to image r / (ho wo).
 int qconv_int8_launch(const void* x, const void* xscale, const void* w,
                       const void* wscale, const void* bias, void* y,
                       int batch, int h, int wd, int cin, int cout, int ks,
-                      int stride, int relu, void* stream) {
+                      int stride, int relu, int per_image, void* stream) {
   if (batch < 1 || h < 1 || wd < 1 || cin < 1 || cout < 1 || ks < 1 ||
       stride < 1)
     return (int)cudaErrorInvalidValue;
@@ -373,7 +394,7 @@ int qconv_int8_launch(const void* x, const void* xscale, const void* w,
             static_cast<const float*>(x), static_cast<const float*>(xscale),
             static_cast<const int8_t*>(w), static_cast<const float*>(wscale),
             static_cast<const float*>(bias), static_cast<float*>(y), s, m, k,
-            cout, relu, vec4);
+            cout, relu, per_image, vec4);
   });
 }
 

@@ -28,8 +28,9 @@ LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc",
     # a b c, m k n, stream
     {"int8_matmul_launch": (PTR, PTR, PTR, INT, INT, INT, PTR),
-     # x xscale w wscale bias y, batch h w cin cout ks stride relu, stream
-     "qconv_int8_launch": (PTR,) * 6 + (INT,) * 8 + (PTR,)},
+     # x xscale w wscale bias y, batch h w cin cout ks stride relu
+     # per_image, stream
+     "qconv_int8_launch": (PTR,) * 6 + (INT,) * 9 + (PTR,)},
 )
 
 # |a|, |b| <= 128: K * 2^14 must stay below 2^31 (ref.py's overflow bound).

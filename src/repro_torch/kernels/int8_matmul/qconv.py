@@ -15,6 +15,15 @@ plain version: every int32 sum is exact and every float step is rounded
 once, in the same order.  On CPU tensors the wrapper takes the plain
 version.  ``qconv_int8_pallas.launches`` counts its kernel launches.
 
+Under the serving pool's vmap the launch goes through the ``torch.library``
+custom op ``repro_torch::qconv_int8`` (outside vmap the wrapper calls its
+implementation straight), which also takes one scale per image
+(``xscale`` of shape ``(N,)``).  Its vmap rule folds the vmapped dimension
+into the batch, so one launch serves every slot, and each slot's
+activations keep the scale a solo forward gives them (``x.abs().amax()``
+of that slot's own tensor): one slot's frame never changes another's
+quantisation.
+
 The plain pieces (``SAME`` windows, ``im2col``, ``quantize_activation``,
 the int32 convolution and the quantised convolution around it) live here;
 ``core/depth.py`` builds its depthwise layers and its ``"ref"`` path from
@@ -32,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from repro_torch.kernels._build import check
+from repro_torch.kernels import _slots
+from repro_torch.kernels._build import check, check_contiguous
 from repro_torch.kernels.int8_matmul.kernel import LIBRARY, MAX_K
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
@@ -72,8 +82,16 @@ def im2col(x: Tensor, k: int,
             (n, ho, wo))
 
 
+def image_scales(x: Tensor, sx: Tensor) -> Tensor:
+    """``sx`` shaped to broadcast against NHWC ``x``: a per-tensor scale as
+    it is, one scale per image as ``(N, 1, 1, 1)``."""
+    return sx.reshape(-1, 1, 1, 1) if sx.ndim == 1 else sx
+
+
 def quantize_activation(x: Tensor, xscale: Tensor) -> Tuple[Tensor, Tensor]:
-    """Symmetric per-tensor int8 of ``x``: ``(qx, sx)`` with ``x ~ qx sx``.
+    """Symmetric int8 of ``x``: ``(qx, sx)`` with ``x ~ qx sx``, per tensor
+    (0-dim ``xscale``) or per image (``xscale`` of shape ``(N,)``; ``sx``
+    then broadcasts as ``(N, 1, 1, 1)``).
 
     As the JAX package's pipeline computes it under ``jax.jit``: the scale
     is ``max(xscale, 1e-8)`` times float32(1/127) (eager JAX divides by
@@ -81,7 +99,7 @@ def quantize_activation(x: Tensor, xscale: Tensor) -> Tuple[Tensor, Tensor]:
     input is divided by the scale, not multiplied by its reciprocal, and
     rounded half to even.
     """
-    sx = xscale.clamp_min(1e-8) * _INV_127
+    sx = image_scales(x, xscale.clamp_min(1e-8) * _INV_127)
     return torch.round(x / sx).clamp(-127, 127).to(torch.int8), sx
 
 
@@ -134,8 +152,9 @@ def check_inputs(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
     if x.ndim != 4 or qw.ndim != 2:
         raise ValueError(f"x must be (N, H, W, cin) and the weight 2-D; got "
                          f"{tuple(x.shape)}, {tuple(qw.shape)}")
-    if xscale.ndim != 0:
-        raise ValueError(f"xscale must be 0-dim, got {tuple(xscale.shape)}")
+    if xscale.ndim != 0 and tuple(xscale.shape) != (x.shape[0],):
+        raise ValueError(f"xscale must be 0-dim or one per image "
+                         f"({x.shape[0]},), got {tuple(xscale.shape)}")
     cout = qw.shape[1]
     if tuple(wscale.shape) != (cout,) or tuple(b.shape) != (cout,):
         raise ValueError(f"wscale {tuple(wscale.shape)} and b "
@@ -161,11 +180,69 @@ def check_inputs(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
     device = devices.pop()
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"qconv runs on cpu or cuda, not {device}")
-    if device.type == "cuda":
-        for name, t in (("x", x), ("weight", qw), ("wscale", wscale),
-                        ("b", b)):
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous for the kernel")
+
+
+def qconv_int8_plain(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
+                     b: Tensor, stride: int, relu: bool) -> Tensor:
+    """The fused layer on a batch of images, the op's CPU implementation:
+    :func:`qconv_int8_ref`; ``xscale`` is per tensor or per image."""
+    return qconv_int8_ref(x, xscale, qw, wscale, b, stride=stride, relu=relu)
+
+
+qconv_int8_op = torch.library.custom_op(
+    "repro_torch::qconv_int8", mutates_args=(),
+    device_types="cpu")(qconv_int8_plain)
+
+
+@qconv_int8_op.register_kernel("cuda")
+def qconv_int8_launch(x, xscale, qw, wscale, b, stride, relu):
+    check_contiguous(x=x, weight=qw, wscale=wscale, b=b, xscale=xscale)
+    n, h, w, cin = x.shape
+    k, cout = kernel_size(x, qw), qw.shape[1]
+    out = torch.empty((n, -(-h // stride), -(-w // stride), cout),
+                      dtype=torch.float32, device=x.device)
+    err = LIBRARY.library().qconv_int8_launch(
+        x.data_ptr(), xscale.data_ptr(), qw.data_ptr(), wscale.data_ptr(),
+        b.data_ptr(), out.data_ptr(), n, h, w, cin, cout, k, stride,
+        int(relu), int(xscale.ndim == 1),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(err, "qconv_int8_launch")
+    qconv_int8_pallas.launches += 1
+    return out
+
+
+@qconv_int8_op.register_fake
+def _(x, xscale, qw, wscale, b, stride, relu):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, -(-h // stride), -(-w // stride), qw.shape[1]))
+
+
+def _qconv_vmap(info, in_dims, x, xscale, qw, wscale, b, stride, relu):
+    """One launch for every slot: the vmapped dimension joins the batch, and
+    each image keeps its slot's scale (per image from then on)."""
+    _slots.require_shared("qconv_int8", in_dims, ((2, "the weight"),
+                                                  (3, "wscale"), (4, "b")))
+    v = info.batch_size
+    n = x.shape[0] if in_dims[0] is None else x.shape[
+        1 if in_dims[0] == 0 else 0]
+    xs = _slots.fold(x, in_dims[0], v)
+    if in_dims[1] is None and xscale.ndim == 0:
+        scales = xscale  # one scale for the whole fold, as before
+    else:
+        scales = xscale.movedim(in_dims[1], 0) if in_dims[1] is not None \
+            else xscale.expand(v, *xscale.shape)
+        # (V,) per slot, or (V, N) per image -> one scale per folded image.
+        if scales.ndim == 2:
+            scales = scales.flatten()
+        elif n > 1:
+            scales = scales.repeat_interleave(n)
+        scales = scales.contiguous()
+    out = qconv_int8_op(xs, scales, qw, wscale, b, stride, relu)
+    return _slots.unfold(out, v), 0
+
+
+torch.library.register_vmap(qconv_int8_op, _qconv_vmap)
 
 
 def qconv_int8_pallas(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
@@ -174,21 +251,9 @@ def qconv_int8_pallas(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
     """One dense or pointwise int8 layer: float32 NHWC ``x`` -> float32
     NHWC ``relu(dequantise(conv(quantise(x), qw)) + b)``."""
     check_inputs(x, xscale, qw, wscale, b, stride)
-    if x.device.type == "cpu":
-        return qconv_int8_ref(x, xscale, qw, wscale, b, stride=stride,
-                              relu=relu)
-    n, h, w, cin = x.shape
-    k, cout = kernel_size(x, qw), qw.shape[1]
-    out = torch.empty((n, -(-h // stride), -(-w // stride), cout),
-                      dtype=torch.float32, device=x.device)
-    err = LIBRARY.library().qconv_int8_launch(
-        x.data_ptr(), xscale.data_ptr(), qw.data_ptr(), wscale.data_ptr(),
-        b.data_ptr(), out.data_ptr(), n, h, w, cin, cout, k, stride,
-        int(relu), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(err, "qconv_int8_launch")
-    qconv_int8_pallas.launches += 1
-    return out
+    op = _slots.pick(qconv_int8_op, qconv_int8_plain, qconv_int8_launch,
+                     x.device)
+    return op(x, xscale, qw, wscale, b, stride, relu)
 
 
 qconv_int8_pallas.launches = 0

@@ -1,18 +1,58 @@
-"""repro_torch.serve — serving on the card.
+"""repro_torch.serve — the live multi-stream serving runtime and the EFM
+serving steps (port of ``repro.serve``).
 
-  jit_prefill, jit_decode_step, greedy_decode_loop   (efm)  the EFM
-                                                     prefill/decode steps
-  KLadderController, make_controller                 (adaptive) adaptive K
+  SlottedPool, SlotStates, StaleSlotError  (slots)     fixed-capacity live
+                                                       pool: active masks,
+                                                       generations, one
+                                                       slot-batched step
+  TieredPool, validate_tiers               (tiers)     size-classed
+                                                       sub-pools, device-side
+                                                       migration
+  KLadderController, RungScheduler,
+  DispatchPlan                             (adaptive)  per-stream adaptive K
+                                                       and the tick's rung
+                                                       dispatch order
+  Prefetch, ChunkQueue                     (ingest)    host-to-device chunk
+                                                       prefetch, bounded
+                                                       per-stream queues
+  StreamServer, ServerConfig               (server)    the serving loop
+  DegradeController, DegradeConfig,
+  LevelPolicy, validate_degrade            (degrade)   graceful degradation
+  StreamTelemetry, tick_readback,
+  pool_stream_counters                     (telemetry) per-stream counters,
+                                                       one sync per tick
+  jit_prefill, jit_decode_step,
+  greedy_decode_loop                       (efm)       the EFM prefill/decode
+                                                       steps
 
-The names of the reference's ``repro.serve`` that the port has load
-lazily, as there: ``repro_torch.api`` imports ``adaptive``, so this
-package must not pull the model zoo in ``efm`` at import time.
+The reference's ``checkpoint`` names wait for ROADMAP.md Queue 1 item 4.
+Everything loads lazily, as there: ``repro_torch.api`` imports
+``adaptive``, so this package must not pull the serving stack or the
+model zoo in ``efm`` at import time.
 """
 
 from __future__ import annotations
 
 _LAZY = {
+    "SlottedPool": "repro_torch.serve.slots",
+    "SlotStates": "repro_torch.serve.slots",
+    "StaleSlotError": "repro_torch.serve.slots",
+    "TieredPool": "repro_torch.serve.tiers",
+    "validate_tiers": "repro_torch.serve.tiers",
     "KLadderController": "repro_torch.serve.adaptive",
+    "RungScheduler": "repro_torch.serve.adaptive",
+    "DispatchPlan": "repro_torch.serve.adaptive",
+    "Prefetch": "repro_torch.serve.ingest",
+    "ChunkQueue": "repro_torch.serve.ingest",
+    "StreamServer": "repro_torch.serve.server",
+    "ServerConfig": "repro_torch.serve.server",
+    "DegradeController": "repro_torch.serve.degrade",
+    "DegradeConfig": "repro_torch.serve.degrade",
+    "LevelPolicy": "repro_torch.serve.degrade",
+    "validate_degrade": "repro_torch.serve.degrade",
+    "StreamTelemetry": "repro_torch.serve.telemetry",
+    "tick_readback": "repro_torch.serve.telemetry",
+    "pool_stream_counters": "repro_torch.serve.telemetry",
     "jit_prefill": "repro_torch.serve.efm",
     "jit_decode_step": "repro_torch.serve.efm",
     "greedy_decode_loop": "repro_torch.serve.efm",

@@ -1,10 +1,10 @@
-"""Per-stream adaptive K: the host-side bucket-ladder controller (port of
-``repro.serve.adaptive``; its ``RungScheduler`` waits for the serving
-slice).
+"""Per-stream adaptive K: the host-side bucket-ladder controller and the
+tick's rung scheduler (port of ``repro.serve.adaptive``).
 
 :class:`KLadderController` is a plain host-side object with no tensors.
-``EPICCompressor(k_ladder=...)`` owns one per session and walks
-``cfg.prefilter_k`` across the ladder's rungs between chunks:
+``EPICCompressor(k_ladder=...)`` owns one per session, and
+``StreamServer`` one per stream; each walks ``cfg.prefilter_k`` across the
+ladder's rungs between chunks:
 
 * **grow** one rung when the chunk reported any ``n_prefilter_overflow``
   (the candidate budget truncated real work);
@@ -14,12 +14,24 @@ slice).
 The rule is a pure function of the per-chunk stats trajectory: a fixed
 ladder and a fixed chunk sequence always give the same K trajectory, and
 a controller that never moves gives the fixed-K run.
+
+:class:`RungScheduler` orders (and optionally coalesces) a serving tick's
+per-rung pool dispatches into :class:`DispatchPlan` s.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Optional, Sequence, Tuple
+from typing import (
+    Any,
+    Dict,
+    Hashable,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 from repro_torch.api import registry as _registry
 
@@ -132,6 +144,153 @@ class KLadderController:
         ):
             self._rung -= 1
         return self.k
+
+
+class DispatchPlan(NamedTuple):
+    """One pool dispatch of a serving tick, as ordered by the
+    :class:`RungScheduler`.
+
+    ``rungs`` holds one rung key per coalesced group (a single-element
+    tuple is a plain per-rung masked step; ``None`` is the fixed-K
+    rung); ``sids`` is the parallel tuple of session-id groups.
+    """
+
+    tier: int
+    rungs: Tuple[Optional[int], ...]
+    sids: Tuple[Tuple[Hashable, ...], ...]
+
+    @property
+    def key(self) -> Hashable:
+        """The step-variant cache key this plan dispatches under."""
+        return self.rungs[0] if len(self.rungs) == 1 else self.rungs
+
+
+class RungScheduler:
+    """Tick-level cost model over rung dispatches.
+
+    The server hands it the tick's ``(tier, rung) -> sids`` groups; it
+    returns an ordered list of :class:`DispatchPlan`:
+
+    * **ordering**: dispatches are issued most-expensive first (by the
+      measured per-rung cost model), so the longest device program is
+      in flight while the host assembles and dispatches the rest — CUDA
+      launches are asynchronous, so issue order is pure overlap and
+      changes no result;
+    * **coalescing** (``coalesce=True``): when the post-pop backlog is
+      at most ``coalesce_backlog`` queued chunks (i.e. the tick is
+      dispatch-overhead-bound, not compute-bound), adjacent rungs
+      within a tier are merged pairwise into one
+      :meth:`~repro_torch.serve.slots.SlottedPool.step_multi` dispatch —
+      bitwise identical per slot, one dispatch instead of two.  Pairing
+      is **deterministic** (ascending adjacent rungs), never
+      cost-dependent: the set of built program keys is a function of
+      traffic alone, so a warmed server cannot be coaxed into a
+      post-warmup compile by noisy timings.
+
+    The cost model itself is measured, not assumed: whenever a tick ran
+    exactly one dispatch, its wall time (dispatch + the tick's single
+    readback) is attributed to that variant's EMA — no extra host syncs
+    ever.  Unmeasured rungs fall back to a prior proportional to their
+    K (candidate budget ~ work).
+    """
+
+    def __init__(
+        self,
+        *,
+        coalesce: bool = False,
+        coalesce_backlog: int = 0,
+        ema_alpha: float = 0.3,
+    ):
+        if not 0.0 < ema_alpha <= 1.0:
+            raise ValueError(f"ema_alpha must be in (0, 1], {ema_alpha}")
+        self.coalesce = coalesce
+        self.coalesce_backlog = coalesce_backlog
+        self.ema_alpha = ema_alpha
+        self._cost: Dict[Hashable, float] = {}
+        self.n_coalesced = 0
+
+    # -- cost model ----------------------------------------------------------
+
+    def estimate(self, key: Hashable) -> float:
+        """Estimated dispatch cost (seconds once measured; before any
+        measurement, a relative prior proportional to the rung K)."""
+        est = self._cost.get(key)
+        if est is not None:
+            return est
+        if isinstance(key, tuple):
+            return sum(self.estimate(k) for k in key)
+        # Relative prior: cost scales with the candidate budget.  1e-6
+        # keeps the prior below any plausible measured seconds so real
+        # measurements dominate ordering as soon as they exist.
+        return 1e-6 * float(key if key else 1)
+
+    def observe_tick(self, keys: Sequence[Hashable], wall_s: float) -> None:
+        """Attribute one tick's wall time.  Only single-dispatch ticks
+        are attributable (the tick's one readback fences the work of
+        every dispatch it issued); multi-dispatch ticks are skipped."""
+        if len(keys) != 1:
+            return
+        key = keys[0]
+        prev = self._cost.get(key)
+        self._cost[key] = (
+            wall_s if prev is None
+            else (1 - self.ema_alpha) * prev + self.ema_alpha * wall_s
+        )
+
+    def cost_estimates(self) -> Dict[Hashable, float]:
+        return dict(self._cost)
+
+    # -- planning ------------------------------------------------------------
+
+    def plan(
+        self,
+        groups: Dict[Tuple[int, Optional[int]], List[Hashable]],
+        *,
+        backlog: int = 0,
+    ) -> List[DispatchPlan]:
+        """Order (and maybe coalesce) one tick's ``(tier, rung)``
+        groups into dispatch plans."""
+        by_tier: Dict[int, List[Tuple[Optional[int], List[Hashable]]]] = {}
+        for (tier, rung), sids in groups.items():
+            by_tier.setdefault(tier, []).append((rung, sids))
+        plans: List[DispatchPlan] = []
+        for tier, rung_groups in by_tier.items():
+            rung_groups.sort(
+                key=lambda rg: -1 if rg[0] is None else rg[0]
+            )
+            if (
+                self.coalesce
+                and backlog <= self.coalesce_backlog
+                and len(rung_groups) > 1
+            ):
+                # Deterministic ascending pairing of adjacent rungs.
+                for lo in range(0, len(rung_groups) - 1, 2):
+                    pair = rung_groups[lo:lo + 2]
+                    plans.append(DispatchPlan(
+                        tier=tier,
+                        rungs=tuple(r for r, _ in pair),
+                        sids=tuple(tuple(s) for _, s in pair),
+                    ))
+                    self.n_coalesced += 1
+                if len(rung_groups) % 2:
+                    r, sids = rung_groups[-1]
+                    plans.append(DispatchPlan(tier, (r,), (tuple(sids),)))
+            else:
+                plans.extend(
+                    DispatchPlan(tier, (r,), (tuple(sids),))
+                    for r, sids in rung_groups
+                )
+        # Most expensive first: its device time overlaps the host-side
+        # assembly of everything behind it.  Tie-break on (tier, rungs)
+        # for a deterministic issue order.
+        plans.sort(
+            key=lambda p: (
+                -self.estimate(p.key),
+                p.tier,
+                tuple(-1 if r is None else r for r in p.rungs),
+            )
+        )
+        return plans
 
 
 def make_controller(

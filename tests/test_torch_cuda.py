@@ -698,3 +698,120 @@ def test_prefill_on_pallas_launches_one_kernel_per_layer(device, arch,
         assert fn.launches - before == (cfg.n_layers if backend == "pallas"
                                         else 0)
     assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The serving pool's slot axis: each kernel on the pool's step, vmapped over
+# slots, is one launch whose slot b equals a launch on slot b alone,
+# bitwise; the pool's dispatch makes no host sync.
+# ---------------------------------------------------------------------------
+
+
+def _slot_inputs(device, slots, n, p, hw):
+    per = [_inputs(device, n, p, hw, seed) for seed in range(slots)]
+    intr = per[0][1]
+    return [torch.stack(xs) for xs in zip(*(a for a, _ in per))], intr
+
+
+@pytest.mark.parametrize("wrapper", ["fused", "pallas", "pallas_tiled"])
+@pytest.mark.parametrize("slots,n", [(32, 192), (5, 24), (3, 1)])
+def test_slot_batched_launch_equals_per_slot_launches(device, wrapper, slots,
+                                                      n):
+    fn = {"fused": reproject_match_fused, "pallas": reproject_match_pallas,
+          "pallas_tiled": reproject_match_pallas_tiled}[wrapper]
+    args, intr = _slot_inputs(device, slots, n, 16, 128)
+
+    def call(rgb, depth, origin, t_rel, frame):
+        return fn(rgb, depth, origin, t_rel, frame, intr, window=32)
+
+    before = fn.launches
+    batched = torch.func.vmap(call)(*args)
+    assert fn.launches == before + 1
+    for b in range(slots):
+        one = call(*(x[b] for x in args))
+        for got, want in zip(batched, one):
+            assert torch.equal(got[b], want), (wrapper, b)
+    # Two vmapped dimensions: two leading slot axes, still one launch.
+    nested = torch.func.vmap(torch.func.vmap(call))(
+        *(x[None] for x in args))
+    assert fn.launches == before + 2 + slots
+    for got, want in zip(nested, batched):
+        assert torch.equal(got[0], want), wrapper
+
+
+def test_slot_batched_qconv_keeps_each_slots_scale(device):
+    """Per-slot ``amax`` scales: one launch, each slot bitwise its own
+    launch (a shared scale would quantise the slots differently)."""
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
+
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(32, 1, 16, 16, 64, generator=g, device=device)
+    x = x * torch.linspace(0.1, 4.0, 32, device=device)[:, None, None, None,
+                                                         None]
+    qw = torch.randint(-127, 128, (64, 32), generator=g, device=device,
+                       dtype=torch.int8)
+    ws = 1e-3 + 2e-2 * torch.rand(32, generator=g, device=device)
+    b = torch.randn(32, generator=g, device=device)
+
+    def layer(xs):
+        return qconv_int8_pallas(xs, xs.abs().amax(), qw, ws, b)
+
+    before = qconv_int8_pallas.launches
+    batched = torch.func.vmap(layer)(x)
+    assert qconv_int8_pallas.launches == before + 1
+    for s in range(32):
+        assert torch.equal(batched[s], layer(x[s]))
+
+
+def _serve_streams(device, n_streams, n_chunks=2, chunk=8, hw=64):
+    from repro_torch.api import SensorChunk
+    from repro_torch.data import synthetic
+
+    out = []
+    for i in range(n_streams):
+        s, _ = synthetic.generate_stream(
+            np.random.default_rng(i),
+            synthetic.StreamConfig(n_frames=n_chunks * chunk, hw=(hw, hw),
+                                   n_obj=4), device=device)
+        out.append([SensorChunk(*(x[c * chunk:(c + 1) * chunk] for x in (
+            s.frames, s.poses, s.gazes, s.depth))) for c in range(n_chunks)])
+    return out
+
+
+def test_server_dispatch_makes_no_host_sync_and_equals_solo(device):
+    """Oracle depth on the card: every stream bitwise a solo session; after
+    warm-up a tick's dispatch runs under sync-debug mode "error" and
+    launches the fused kernel once per frame for all slots."""
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve import ServerConfig, StreamServer
+
+    cfg = pipe.EPICConfig(frame_hw=(64, 64), capacity=32, window=16)
+    streams = _serve_streams(device, 6, n_chunks=3)
+    srv = StreamServer(EPICCompressor(cfg, device=device),
+                       ServerConfig(capacity=8, chunk_frames=8))
+    for i in range(6):
+        srv.admit(i)
+    for c in range(3):
+        for i, chunks in enumerate(streams):
+            srv.submit(i, chunks[c])
+        if c == 0:
+            srv.tick()  # builds the step program
+            continue
+        ready = srv._pop_ready()
+        before = reproject_match_fused.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inflight = srv._dispatch(ready)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        srv._finish(*inflight)
+        assert reproject_match_fused.launches - before == 8
+    for i, chunks in enumerate(streams):
+        solo = EPICCompressor(cfg, device=device)
+        state = solo.init()
+        for c in chunks:
+            state, _ = solo.step(state, c)
+        for got, want in zip(torch.utils._pytree.tree_leaves(srv.state(i)),
+                             torch.utils._pytree.tree_leaves(state)):
+            assert torch.equal(got, want), i

@@ -166,28 +166,40 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
 
 
 def test_serve_names_resolve_lazily_without_jax():
-    """``repro_torch.serve`` maps the reference's ``_LAZY`` names the port
-    has to their modules; importing the package loads none of them."""
-    code = ("import sys\n"
+    """``repro_torch.serve`` maps every name of the reference's ``_LAZY``
+    table but the checkpoint ones (ROADMAP.md Queue 1 item 4) to its
+    module; importing the package loads none of them, and nothing imports
+    JAX.  ``repro_torch.obs`` and ``repro_torch.api.StreamPool`` likewise."""
+    code = ("import importlib, re, sys\n"
             "sys.modules['jax'] = None\n"
             "import repro_torch, repro_torch.serve as s\n"
             "assert 'repro_torch.serve.efm' not in sys.modules\n"
-            "from repro_torch.serve import (jit_prefill, jit_decode_step,\n"
-            "    greedy_decode_loop, KLadderController)\n"
-            "from repro_torch.serve import efm, adaptive\n"
-            "assert jit_prefill is efm.jit_prefill\n"
-            "assert jit_decode_step is efm.jit_decode_step\n"
-            "assert greedy_decode_loop is efm.greedy_decode_loop\n"
-            "assert KLadderController is adaptive.KLadderController\n"
-            "assert sorted(s.__all__) == sorted(['jit_prefill', "
-            "'jit_decode_step', 'greedy_decode_loop', 'KLadderController'])\n"
-            "try:\n"
-            "    s.bogus\n"
-            "except AttributeError:\n"
-            "    pass\n"
-            "else:\n"
-            "    raise AssertionError('bogus resolved')\n"
-            "assert sys.modules['jax'] is None\n")
+            "assert 'repro_torch.serve.server' not in sys.modules\n"
+            "ref = open('src/repro/serve/__init__.py').read()\n"
+            "names = re.findall(r'\"(\\w+)\": \"repro\\.serve\\.(\\w+)\"', ref)\n"
+            "want = sorted(n for n, m in names if m != 'checkpoint')\n"
+            "assert sorted(s.__all__) == want, sorted(s.__all__)\n"
+            "for name in want:\n"
+            "    mod = importlib.import_module(s._LAZY[name])\n"
+            "    assert getattr(s, name) is getattr(mod, name), name\n"
+            "import repro_torch.obs as o\n"
+            "from repro_torch.obs.metrics import MetricsRegistry\n"
+            "assert o.MetricsRegistry is MetricsRegistry\n"
+            "for name in o.__all__:\n"
+            "    getattr(o, name)\n"
+            "from repro_torch.api import StreamPool\n"
+            "from repro_torch.api.pool import StreamPool as P\n"
+            "assert StreamPool is P\n"
+            "for mod in (s, o):\n"
+            "    try:\n"
+            "        mod.bogus\n"
+            "    except AttributeError:\n"
+            "        pass\n"
+            "    else:\n"
+            "        raise AssertionError('bogus resolved')\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
     out = subprocess.run(
         [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
         capture_output=True, text=True, timeout=120,

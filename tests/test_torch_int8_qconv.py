@@ -174,7 +174,10 @@ def _bad(change):
     (lambda a: {"qw": a["qw"].float()}, TypeError, "int8"),
     (lambda a: {"xscale": a["xscale"].to("meta")}, ValueError,
      "different devices"),
-    (lambda a: {"xscale": a["xscale"].reshape(1)}, ValueError, "0-dim"),
+    # One scale per image is the contract too: a 1-D xscale of another
+    # length than the batch is not.
+    (lambda a: {"xscale": a["xscale"].reshape(1).expand(2)}, ValueError,
+     "0-dim or one per image"),
     (lambda a: {"qw": a["qw"][:70]}, ValueError, "k k cin"),
     (lambda a: {"wscale": a["wscale"][:3]}, ValueError, r"\(4,\)"),
     (lambda a: {"x": a["x"][0]}, ValueError, "N, H, W, cin"),
