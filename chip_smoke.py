@@ -158,6 +158,39 @@ and prints no result line):
    memory a slot, and device launches per tick-frame at 8 and at 32 live
    streams (equal: one step program, one launch of each kernel a frame
    for all slots).
+17. The wire in front of phase 16's server, in the same process after
+   it.  (a) Phase 16's schedule recorded by the port's ``record_streams``
+   (EPWF bytes), each stream driven by a ``ResumableSession`` through a
+   ``FaultyTransport`` (seeded drops, duplicates, reordering, corruption,
+   truncation) and ``Loopback`` into a strict-seq ``IngestServer`` in
+   front of a ``StreamServer`` of phase 16's config: on the oracle track
+   every live stream bitwise phase 16's direct run, on the int8 depth
+   track with HIR integers equal to it and floats within
+   ``SERVE_FLOAT_TOL``; a short run (4 streams, 3 chunks) through
+   ``serve_unix`` with each tick on another thread bitwise the
+   ``Loopback`` run.  (b) Crash and restore: the oracle schedule over a
+   Unix socket into a serving process of its own (``chip_smoke.py
+   --wire-server``) that checkpoints every 2 ticks through
+   ``ServeCheckpointer`` (``AsyncSaver``, with the wire cursors) and is
+   killed at tick 7; a fresh process restores the newest complete
+   checkpoint (``restore_server(..., with_ingest=True)``), the clients
+   RESUME and replay from their windows, and every live stream ends
+   bitwise equal to the uninterrupted direct run, with one step program
+   a variant.  Launches are counted in each wire run and in the restored
+   run from 0 before its first tick to after its last: 1 ``rm_fused`` a
+   frame of each rung group and 8 (int8 track) or 0 fused int8 launches.
+   (c) The EVU probe (Table 1's setting 1 at ``--quick``'s stream counts):
+   seeded 64x64 streams rendered on the card, HIR fine-tuned with
+   ``hir.loss_fn`` (300 SGD steps, lr 0.05, batch 64), EPIC's token
+   streams (one ``StreamPool`` step a chunk), the benchmark's question
+   set, then ``evu.train_eval`` (``EVUConfig(d_model=64, batch=16,
+   lr=2e-3, steps=450)``); ``forward``, the gradient and one Adam step
+   within 1e-5 of the CPU's.  (d) Readings beside the card's name and
+   power limit: wire frames/s, host time of decode and submit a chunk,
+   tick latency median and p99 through the wire beside phase 16's direct
+   figure, NACKs by reason, checkpoint snapshot time and bytes on disk a
+   slot, restore time to the first served tick, EVU train steps/s and
+   test accuracy.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
@@ -170,7 +203,8 @@ and ``int8_matmul_pallas``, the op's product kernel, held and timed in
 phases 9-10 at the main path's product shapes, whose work the fused launch
 does on the main path: 0 launches there; and the pool path's two rows,
 ``reproject_match_fused/slots`` and ``int8_matmul_pallas/qconv/slots``:
-phase 16's launches at 32 slots, with the launches of its serving runs),
+phase 16's launches at 32 slots, with the launches of its serving runs
+and of phase 17's two wire runs and its restored run),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -294,6 +328,23 @@ SERVE_TIERS = (8, 24)
 # convolves a frame differently at batch 32 than at 1.  The readings
 # were 1.04e-06 (fp32) and 1.19e-07 (int8) on an H100.
 SERVE_FLOAT_TOL = 1e-5
+# Phase 17: the wire in front of phase 16's server.  Late joiner j is wire
+# stream WIRE_LATE + j; the lossy link's per-frame fault rates (after one
+# round delivered whole); the short Unix-socket run's streams; the crash:
+# a checkpoint every WIRE_CKPT_EVERY ticks, the kill at tick
+# WIRE_CRASH_TICK.
+WIRE_LATE = 100
+WIRE_FAULTS = {"drop": 0.05, "dup": 0.05, "reorder": 0.05, "corrupt": 0.05,
+               "truncate": 0.02}
+WIRE_SHORT = 4
+WIRE_CKPT_EVERY, WIRE_CRASH_TICK = 2, 7
+WIRE_QUIET_S = 0.05  # the serving process ticks a partial round after this
+# The EVU probe, as benchmarks/evu_accuracy.py's setting 1 (--quick's
+# stream counts): 64x64 streams of 40 frames, 5 objects, 4 segments, DC
+# buffer 48; card vs CPU within EVU_TOL (float32, TF32 off).
+EVU_HW, EVU_PATCH, EVU_FRAMES, EVU_OBJ, EVU_SEG = 64, 16, 40, 5, 4
+EVU_CAP, EVU_TRAIN, EVU_TEST = 48, 24, 12
+EVU_TOL = 1e-5
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -596,6 +647,12 @@ def device_profile(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # An empty session first: two runs of phase 16c counted 6 more device
+    # launches in the first profiled tick after another profiled tick, as
+    # if device records of one session had reached the next.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2577,6 +2634,7 @@ def phase_serve(torch, device, card):
         srv, served = counted_run(label, run_models, qconvs, depth=False)
         compare_solo(torch, device, run_models, srv, served, label,
                      exact=False)
+    int8_run = srv  # phase 17 serves the same chunks through the wire
     _need(all(counted.values()), f"a pool kernel was never launched: "
           f"{counted}")
     print(f"[16b] launches in the four serving runs, each counted from 0 "
@@ -2636,7 +2694,7 @@ def phase_serve(torch, device, card):
     srv = StreamServer(EPICCompressor(pipe.EPICConfig(), oracle,
                                       device=device),
                        ServerConfig(capacity=SERVE_SLOTS, chunk_frames=CHUNK))
-    per = {}
+    per, names = {}, {}
     feeds = founders + late + founders[:SERVE_SLOTS - SERVE_LIVE - SERVE_CHURN]
     few = SERVE_SLOTS // 4
     for live in (few, SERVE_SLOTS):
@@ -2650,29 +2708,828 @@ def phase_serve(torch, device, card):
                 srv.tick()
                 continue
             # Two profiled ticks, the larger count kept: a trace can lose
-            # events (see device_launches_per_call), never gain them.
-            _, launches, _ = device_profile(torch, srv.tick)
+            # events (see device_launches_per_call), never gain them.  The
+            # submits' non_blocking uploads finish first: one still in
+            # flight when the trace starts is recorded as the tick's.
+            torch.cuda.synchronize(device)
+            _, launches, rows = device_profile(torch, srv.tick)
             _need(launches > 0, f"{live} live: the profiled tick recorded "
                   "no device launch")
             _need(fused.reproject_match_fused.launches - before == CHUNK,
                   f"{live} live: not one rm_fused launch a frame")
-            per[live] = max(per.get(live, 0), launches / CHUNK)
+            if launches / CHUNK > per.get(live, 0):
+                per[live] = launches / CHUNK
+                names[live] = {e.key: e.count for e in rows}
+    diff = {k: (names[few].get(k, 0), names[SERVE_SLOTS].get(k, 0))
+            for k in set(names[few]) | set(names[SERVE_SLOTS])
+            if names[few].get(k, 0) != names[SERVE_SLOTS].get(k, 0)}
     _need(per[few] == per[SERVE_SLOTS], f"device launches per tick-frame "
-          f"differ with the live count: {per}")
+          f"differ with the live count: {per}; device rows whose counts "
+          f"differ (at {few}, at {SERVE_SLOTS}): {diff}")
     _need(srv.step_cache_sizes() == {None: 1},
           f"programs {srv.step_cache_sizes()}")
     print(f"[16c] {card}: device launches per tick-frame at {few} live "
           f"streams {per[few]:.1f}, at {SERVE_SLOTS} {per[SERVE_SLOTS]:.1f} (one "
           f"rm_fused launch a frame for all slots; qconv launches in the int8 "
           f"run {counted['int8_matmul_pallas/qconv/slots']})")
+    return dict(counted=counted, flat=flat, int8=int8_run, qmodels=qmodels,
+                founders=founders, late=late, tick_ms=(med * 1e3, p99 * 1e3))
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the wire in front of the StreamServer, crash and restore, EVU.
+# ---------------------------------------------------------------------------
+
+
+def wire_ids():
+    """Wire stream ids of phase 16's streams: founder ``i`` is ``i``, late
+    joiner ``j`` is ``WIRE_LATE + j``; with phase 16's names."""
+    ids = {i: f"s{i}" for i in range(SERVE_LIVE)}
+    ids.update({WIRE_LATE + j: f"l{j}" for j in range(SERVE_CHURN)})
+    return ids
+
+
+def wire_schedule(founders, late, depth, tmp):
+    """Phase 16's schedule as EPWF bytes: the founders' and the late
+    joiners' chunks recorded by the port's ``record_streams`` (a founder
+    closed at the churn keeps its first half), read back and grouped by
+    tick: ``{tick: [(stream id, chunk as a view of the trace), ...]}``."""
+    from repro_torch.api import SensorChunk
+    from repro_torch.wire import codec, trace
+
+    half = SERVE_CHUNKS // 2
+
+    def feed(chunks):
+        return [SensorChunk(*c[:3], c.depth if depth else None)
+                for c in chunks]
+
+    sched = {}
+    for name, feeds, start in (
+            ("founders", {i: feed(f[:half] if i < SERVE_CHURN else f)
+                          for i, f in enumerate(founders)}, 0),
+            ("late", {WIRE_LATE + j: feed(f) for j, f in enumerate(late)},
+             half)):
+        path = str(tmp / f"{name}.wtrace")
+        trace.record_streams(feeds, path, chunk_period_ns=1,
+                             open_close=False, start_ns=start)
+        for rec in trace.TraceReader(path):
+            frame = codec.decode_frame(rec.message)
+            sched.setdefault(rec.timestamp_ns, []).append(
+                (frame.stream_id, frame.chunk))
+    return sched
+
+
+def count_groups(srv):
+    """Count the rung groups ``srv`` dispatches (each launches every kernel
+    of the step once a frame for all its slots) in ``srv.groups``."""
+    srv.groups = 0
+    body = srv._rung_body
+
+    def counted(k):
+        srv.groups += 1
+        return body(k)
+
+    srv._rung_body = counted
+
+
+def check_launches(label, wrappers, groups, per_frame_qconv, counted):
+    rm = wrappers["reproject_match_fused"].launches
+    qc = wrappers["int8_matmul_pallas/qconv"].launches
+    _need(groups > 0 and rm == CHUNK * groups
+          and qc == per_frame_qconv * CHUNK * groups,
+          f"{label}: {rm} rm_fused and {qc} qconv launches for {groups} "
+          f"rung groups of {CHUNK} frames")
+    counted["reproject_match_fused/slots"] += rm
+    counted["int8_matmul_pallas/qconv/slots"] += qc
+    return rm, qc
+
+
+def wire_server(device, models):
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve import ServerConfig, StreamServer
+    from repro_torch.wire.server import IngestServer
+
+    srv = StreamServer(
+        EPICCompressor(pipe.EPICConfig(prefilter_k=SERVE_LADDER[0]), models,
+                       device=device),
+        ServerConfig(capacity=SERVE_SLOTS, chunk_frames=CHUNK,
+                     k_ladder=SERVE_LADDER, eviction="lru"))
+    return srv, IngestServer(srv, strict_seq=True)
+
+
+def wire_run(torch, device, models, sched, plan=None):
+    """Phase 16's schedule through ``Loopback`` into an ``IngestServer``
+    (strict seqs) in front of a ``StreamServer``, each stream driven by a
+    ``ResumableSession``, through a ``FaultyTransport`` when ``plan`` is
+    given; one tick a round, the tick timed as phase 16's.  Returns
+    ``(server, ingest, tick seconds, host seconds of each data frame's
+    decode and submit, sessions, wall seconds of the run: encode, link,
+    decode, submit and ticks)``."""
+    from repro_torch.wire.fault import FaultyTransport
+    from repro_torch.wire.server import Loopback, ResumableSession
+
+    srv, ingest = wire_server(device, models)
+    count_groups(srv)
+    host = []
+    handle = ingest.handle_message
+
+    def timed(msg):
+        t0 = time.perf_counter()
+        out = handle(msg)
+        if bytes(memoryview(msg)[:4]) == b"EPWF":
+            host.append(time.perf_counter() - t0)
+        return out
+
+    ingest.handle_message = timed
+    link = Loopback(ingest)
+    if plan is not None:
+        link = FaultyTransport(link, plan)
+    sessions, ticks = {}, []
+    half = SERVE_CHUNKS // 2
+    wall = time.perf_counter()
+    for t in range(SERVE_CHUNKS):
+        if t == half:
+            for i in range(SERVE_CHURN):
+                _need(sessions.pop(i).close().ok, f"CLOSE {i} refused")
+        for sid, chunk in sched[t]:
+            if sid not in sessions:
+                sessions[sid] = ResumableSession(link, sid, window=32,
+                                                 drain=ingest.tick)
+                _need(sessions[sid].open().ok, f"OPEN {sid} refused")
+            _need(sessions[sid].send_chunk(chunk).ok,
+                  f"stream {sid} seq {t} not delivered")
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        ingest.tick()
+        ticks.append(time.perf_counter() - t0)
+    if plan is not None:
+        # A frame lost at a stream's end has no later frame to reveal the
+        # gap: the link turns clean, every session resumes and replays
+        # what the server lacks from its window.
+        plan.rates = {}
+        for s in sessions.values():
+            s.resume()
+    while any(len(q) for q in srv._queues.values()):
+        ingest.tick()
+    torch.cuda.synchronize(device)
+    return srv, ingest, ticks, host, sessions, time.perf_counter() - wall
+
+
+def compare_direct(torch, direct, srv, label, exact):
+    """Every live stream of the wire run against phase 16's direct run of
+    the same chunks: ``k_trajectory`` and counters equal, the state
+    bitwise (``exact``) or integers equal and floats within
+    ``SERVE_FLOAT_TOL``; returns the largest float difference."""
+    ids = wire_ids()
+    _need(sorted(ids[s] for s in srv.live_sessions)
+          == sorted(direct.live_sessions),
+          f"{label}: live streams {sorted(srv.live_sessions)} are not the "
+          f"direct run's")
+    worst = 0.0
+    for sid in srv.live_sessions:
+        mine, theirs = srv.telemetry(sid), direct.telemetry(ids[sid])
+        _need(list(mine.k_trajectory) == list(theirs.k_trajectory)
+              and (mine.n_chunks, mine.n_processed, mine.n_inserted)
+              == (theirs.n_chunks, theirs.n_processed, theirs.n_inserted),
+              f"{label} {sid}: k_trajectory or counters differ from the "
+              f"direct run")
+        for i, (a, b) in enumerate(zip(state_leaves(srv.state(sid)),
+                                       state_leaves(direct.state(ids[sid])))):
+            same = torch.equal(a, b)
+            if a.dtype.is_floating_point and not exact:
+                worst = max(worst, float((a - b).abs().max()))
+            else:
+                _need(same, f"{label} {sid}: state leaf {i} is not the "
+                      "direct run's")
+    _need(worst <= SERVE_FLOAT_TOL, f"{label}: a float state leaf differs "
+          f"from the direct run by {worst:.3g}")
+    return worst
+
+
+def serve_in_thread(ingest, path):
+    """``ingest.serve_unix(path)`` on an asyncio loop of its own thread;
+    returns ``(stop, thread)``: ``stop()`` ends the loop after cancelling
+    its connection handlers."""
+    import asyncio
+    import threading
+
+    loop = asyncio.new_event_loop()
+    up = threading.Event()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        server = loop.run_until_complete(ingest.serve_unix(path))
+        up.set()
+        loop.run_forever()
+        server.close()
+        tasks = asyncio.all_tasks(loop)
+        for task in tasks:
+            task.cancel()
+        loop.run_until_complete(asyncio.gather(*tasks,
+                                               return_exceptions=True))
+        loop.close()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    _need(up.wait(60), "serve_unix did not start")
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        _need(not thread.is_alive(), "the receiver thread did not stop")
+
+    return stop
+
+
+def unix_run(torch, device, models, sched, tmp, threaded):
+    """The short run (``WIRE_SHORT`` streams, 3 chunks) through
+    ``serve_unix`` (``threaded``: an asyncio receiver thread submits while
+    another thread ticks) or through ``Loopback``; returns the server."""
+    import threading
+
+    from repro_torch.wire import codec
+    from repro_torch.wire.server import Loopback, WireClient
+
+    srv, ingest = wire_server(device, models)
+    rounds = [[(sid, c) for sid, c in sched[t] if sid < WIRE_SHORT]
+              for t in range(3)]
+    if not threaded:
+        client, tick = Loopback(ingest), ingest.tick
+    else:
+        path = str(tmp / "short.sock")
+        stop = serve_in_thread(ingest, path)
+        client = WireClient(unix_path=path, timeout=60)
+
+        def tick():
+            ticker = threading.Thread(target=ingest.tick)
+            ticker.start()
+            ticker.join(120)
+            _need(not ticker.is_alive(), "a tick thread did not finish")
+    try:
+        for sid in range(WIRE_SHORT):
+            _need(client.send(codec.encode_control(codec.OP_OPEN, sid)).ok,
+                  f"OPEN {sid}")
+        for t, batch in enumerate(rounds):
+            for sid, chunk in batch:
+                _need(client.send(codec.encode_chunk(
+                    chunk, stream_id=sid, seq=t, timestamp_ns=t)).ok,
+                    f"stream {sid} seq {t}")
+            tick()
+    finally:
+        if threaded:
+            client.close()
+            stop()
+    return srv
+
+
+def phase_wire(torch, device, card, ctx):
+    """Phase 17 (a) wire serving, (b) crash and restore; returns the
+    ``/slots`` rows' launches with these runs' added."""
+    import tempfile
+
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.runtime.fault import FaultPlan
+
+    counted = dict(ctx["counted"])
+    wrappers = kernel_wrappers()
+    oracle = pipe.EPICModels()
+    (ROOT / "build").mkdir(exist_ok=True)  # ignored by git
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = Path(d)
+        oracle_sched = wire_schedule(ctx["founders"], ctx["late"], True, tmp)
+        runs = {}
+        for label, models, qconvs, sched, direct, exact in (
+                ("oracle depth", oracle, 0, oracle_sched, ctx["flat"], True),
+                ("int8 depth", ctx["qmodels"], len(DEPTH_GEMMS),
+                 wire_schedule(ctx["founders"], ctx["late"], False, tmp),
+                 ctx["int8"], False)):
+            plan = FaultPlan(seed=SEED, rates=WIRE_FAULTS, warmup=SERVE_LIVE)
+            for w in wrappers.values():
+                w.launches = 0
+            srv, ingest, ticks, host, sessions, wall = wire_run(
+                torch, device, models, sched, plan)
+            rm, qc = check_launches(f"wire, {label}", wrappers, srv.groups,
+                                    qconvs, counted)
+            worst = compare_direct(torch, direct, srv, f"wire, {label}",
+                                   exact)
+            _need(all(v == 1 for v in srv.step_cache_sizes().values()),
+                  f"wire, {label}: a step program was built twice")
+            runs[label] = (srv, ingest, ticks, host, sessions, wall)
+            print(f"[17a] wire, {label}: {len(srv.live_sessions)} live "
+                  f"streams through Loopback, FaultyTransport "
+                  f"{dict(plan.counts)} and ResumableSession (strict seqs): "
+                  + ("bitwise the direct run" if exact else
+                     f"integers equal to the direct run, largest float "
+                     f"difference {worst:.3g}")
+                  + f"; {srv.groups} rung groups, rm_fused {rm}, qconv {qc}")
+        srv, ingest, ticks, host, sessions, wall = runs["oracle depth"]
+        frames = srv.frames_served
+        steady = sorted(ticks[1:])
+        med, p99 = steady[len(steady) // 2], steady[
+            min(len(steady) - 1, int(0.99 * len(steady)))]
+        hsort = sorted(host)
+        retrans = {k: sum(getattr(s, k) for s in sessions.values())
+                   for k in ("n_retransmits", "n_damage_retries",
+                             "n_already_served", "n_resumes")}
+        print(f"[17d] {card}: wire, oracle depth: {len(host)} data frames "
+              f"decoded and submitted, host time a chunk median "
+              f"{hsort[len(hsort) // 2] * 1e3:.3f} ms, p99 "
+              f"{hsort[int(0.99 * len(hsort))] * 1e3:.3f} ms; "
+              f"{frames / wall:.1f} wire frames/s aggregate ({frames} "
+              f"frames served in {wall:.3f} s of wall time: encode, link, "
+              f"decode, submit and ticks; {frames / sum(ticks):.1f} over "
+              f"the ticks alone); tick latency median {med * 1e3:.1f} ms, p99 "
+              f"{p99 * 1e3:.1f} ms through the wire, direct (phase 16) "
+              f"median {ctx['tick_ms'][0]:.1f} ms, p99 "
+              f"{ctx['tick_ms'][1]:.1f} ms; NACKs by reason "
+              f"{ingest.nacks}; session recovery {retrans}")
+
+        a = unix_run(torch, device, oracle, oracle_sched, tmp, False)
+        b = unix_run(torch, device, oracle, oracle_sched, tmp, True)
+        for sid in range(WIRE_SHORT):
+            _need(all(torch.equal(x, y) for x, y in zip(
+                state_leaves(a.state(sid)), state_leaves(b.state(sid)))),
+                f"serve_unix {sid}: differs from the Loopback run")
+        print(f"[17a] serve_unix with ticks on another thread: "
+              f"{WIRE_SHORT} streams x 3 chunks bitwise the Loopback run")
+
+        crash_and_restore(torch, device, ctx, oracle_sched, tmp, counted)
     return counted
+
+
+# -- (b) crash and restore: the serving process is killed and restored in a
+# fresh one, the clients in this process resuming over a Unix socket.
+
+
+class _Supervisor:
+    """Runs the serving process (``chip_smoke.py --wire-server``) and,
+    when it has died, starts the restoring one in its place."""
+
+    def __init__(self, sock, ckpt, done):
+        self.sock, self.ckpt, self.done = sock, ckpt, done
+        self.procs = []
+        self.restarted = False
+        self.start("fresh")
+
+    def start(self, mode):
+        import os
+
+        if os.path.exists(self.sock):
+            os.unlink(self.sock)
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--wire-server",
+             mode, self.sock, self.ckpt, self.done],
+            stdout=subprocess.PIPE, text=True)
+        self.procs.append((mode, proc, []))
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            if line == "ready":
+                return
+            self.procs[-1][2].append(line)
+            print(line, flush=True)
+        raise AssertionError(f"the {mode} serving process exited before it "
+                             f"was ready ({proc.wait()})")
+
+    def ensure_up(self):
+        mode, proc, _ = self.procs[-1]
+        _need(proc.poll() is None or mode == "fresh",
+              f"the restoring process died ({proc.returncode})")
+        if proc.poll() is not None:
+            for line in proc.stdout:
+                print(line.rstrip("\n"), flush=True)
+            _need(proc.returncode != 0, "the serving process ended on its "
+                  "own before the crash")
+            self.restarted = True
+            self.start("restore")
+
+    def finish(self):
+        mode, proc, _ = self.procs[-1]
+        out, _ = proc.communicate(timeout=300)
+        lines = out.splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        _need(proc.returncode == 0 and lines,
+              f"the {mode} serving process failed ({proc.returncode})")
+        return json.loads(lines[-1])
+
+
+class _Redial:
+    """A ``WireClient`` whose redial first makes sure a serving process is
+    up (the supervisor restores a dead one)."""
+
+    def __init__(self, sup):
+        from repro_torch.wire.server import WireClient
+
+        self.sup = sup
+        self.client = WireClient(unix_path=sup.sock, timeout=120,
+                                 reconnect_attempts=50, backoff_max=0.5)
+
+    def send(self, msg):
+        return self.client.send(msg)
+
+    def reconnect(self):
+        self.sup.ensure_up()
+        self.client.reconnect()
+
+
+def clients_run(sup, sched):
+    """The clients of phase 17 (b): phase 16's schedule, one
+    ``ResumableSession`` a stream over its own socket; a client whose
+    stream the restored checkpoint predates opens it again and replays its
+    window from seq 0, and a close it predates is made again.  Returns the
+    restored process's results, the sessions, and the newest checkpoint's
+    bytes on disk and step."""
+    from repro_torch.checkpoint import store
+    from repro_torch.wire import codec
+    from repro_torch.wire.server import ResumableSession, ResumeError
+
+    sessions, closed = {}, []
+    half = SERVE_CHUNKS // 2
+
+    link = _Redial(sup)
+
+    def control(op, sid, ok_also):
+        for _ in range(3):
+            try:
+                r = link.send(codec.encode_control(op, sid))
+            except (ConnectionError, OSError):
+                link.reconnect()
+                continue
+            _need(r.ok or r.status_name in ok_also, f"{op} {sid}: {r}")
+            return
+        raise AssertionError(f"control {op} for {sid} undeliverable")
+
+    def wait():
+        time.sleep(0.002)  # the serving process ticks on its own
+
+    def send(sid, chunk):
+        s = sessions[sid]
+        try:
+            _need(s.send_chunk(chunk).ok, f"stream {sid} not delivered")
+        except ResumeError as e:
+            # Opened after the restored checkpoint: open again and replay
+            # the whole window.
+            _need("unknown_stream" in str(e), str(e))
+            control(codec.OP_OPEN, sid, ())
+            s.last_acked = -1
+            s.resume()
+
+    for t in range(SERVE_CHUNKS):
+        if sup.restarted and closed:
+            # A close the restored checkpoint predates is made again.
+            for sid in closed:
+                control(codec.OP_CLOSE, sid, ("unknown_stream",))
+            closed = []
+        if t == half:
+            for i in range(SERVE_CHURN):
+                sessions.pop(i)
+                control(codec.OP_CLOSE, i, ("unknown_stream",))
+                closed.append(i)
+        for sid, chunk in sched[t]:
+            if sid not in sessions:
+                sessions[sid] = ResumableSession(_Redial(sup), sid,
+                                                 window=32, drain=wait,
+                                                 max_retries=5000)
+                control(codec.OP_OPEN, sid, ("dup_stream",))
+            send(sid, chunk)
+    if closed and sup.restarted:
+        for sid in closed:
+            control(codec.OP_CLOSE, sid, ("unknown_stream",))
+    _need(sup.restarted, f"the serving process was not killed at tick "
+          f"{WIRE_CRASH_TICK}")
+    Path(sup.done).touch()
+    result = sup.finish()
+    link.client.close()
+    for s in sessions.values():
+        s.transport.client.close()
+    steps = store.complete_steps(sup.ckpt)
+    step_dir = Path(sup.ckpt) / f"step_{steps[-1]:08d}"
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    return result, sessions, nbytes, steps[-1]
+
+
+def crash_and_restore(torch, device, ctx, sched, tmp, counted):
+    """Phase 16's oracle schedule through a Unix socket into a serving
+    process that checkpoints every ``WIRE_CKPT_EVERY`` ticks and is killed
+    at tick ``WIRE_CRASH_TICK``; a fresh process restores the newest
+    complete checkpoint with the wire cursors, the clients RESUME and
+    replay from their windows, and every live stream must end bitwise equal
+    to the uninterrupted direct run, with one step program a variant."""
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve.checkpoint import restore_server
+
+    sup = _Supervisor(str(tmp / "serve.sock"), str(tmp / "ckpt"),
+                      str(tmp / "done"))
+    try:
+        result, sessions, nbytes, step = clients_run(sup, sched)
+    finally:
+        for _, proc, _ in sup.procs:  # no serving process outlives this
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    counted["reproject_match_fused/slots"] += result["rm_fused"]
+    counted["int8_matmul_pallas/qconv/slots"] += result["qconv"]
+    _need(result["rm_fused"] == CHUNK * result["groups"]
+          and result["qconv"] == 0 and result["groups"] > 0,
+          f"restored run: launches {result}")
+    _need(all(v == 1 for v in result["programs"]),
+          f"restored run: step programs {result['programs']}")
+    comp = EPICCompressor(pipe.EPICConfig(prefilter_k=SERVE_LADDER[0]),
+                          pipe.EPICModels(), device=device)
+    srv, _, _ = restore_server(result["final"], comp)
+    worst = compare_direct(torch, ctx["flat"], srv, "crash and restore",
+                           True)
+    resumes = sum(s.n_resumes for s in sessions.values())
+    print(f"[17b] crash at tick {WIRE_CRASH_TICK}, restored from step "
+          f"{result['restored_step']} in a fresh process: "
+          f"{len(srv.live_sessions)} live streams bitwise the uninterrupted "
+          f"direct run ({resumes} RESUMEs); restored run {result['ticks']} "
+          f"ticks, {result['groups']} rung groups, rm_fused "
+          f"{result['rm_fused']}, qconv {result['qconv']}, programs "
+          f"{result['programs']}")
+    _need(worst == 0.0, "crash and restore: not bitwise")
+    print(f"[17d] checkpoint on disk: {nbytes} bytes for step {step} "
+          f"of a {SERVE_SLOTS}-slot pool, {nbytes / SERVE_SLOTS:.0f} bytes a "
+          f"slot (queued chunks and metadata included)")
+
+
+def card_device(torch):
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    return device
+
+
+def wire_server_main(mode, sock, ckpt, done) -> int:
+    """``chip_smoke.py --wire-server MODE SOCK CKPT DONE``: the serving
+    process of phase 17 (b).  ``fresh`` builds the server, checkpoints
+    every ``WIRE_CKPT_EVERY`` ticks and kills itself at tick
+    ``WIRE_CRASH_TICK``; ``restore`` restores the newest complete
+    checkpoint with its wire cursors, serves to the end (the file DONE
+    exists and every queue is empty), saves a final checkpoint and prints
+    its results as one JSON line, last.  Ticks run on this thread, the
+    receiver on an asyncio thread; a tick runs when every live stream has
+    a chunk queued, when a stream's queue is full, or when the socket has
+    been quiet for ``WIRE_QUIET_S``."""
+    import os
+    import signal
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    device = card_device(torch)
+    set_numerics(torch)
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve.checkpoint import (ServeCheckpointer,
+                                              restore_server, save_server)
+
+    t_start = time.perf_counter()
+    if mode == "fresh":
+        srv, ingest = wire_server(device, pipe.EPICModels())
+        restored_step = None
+    else:
+        comp = EPICCompressor(pipe.EPICConfig(prefilter_k=SERVE_LADDER[0]),
+                              pipe.EPICModels(), device=device)
+        t_restore = time.perf_counter()
+        srv, ingest, restored_step = restore_server(ckpt, comp,
+                                                    with_ingest=True)
+        torch.cuda.synchronize(device)
+        print(f"[17d] restore_server: {time.perf_counter() - t_restore:.3f}"
+              f" s (read step {restored_step}, copies in place)", flush=True)
+        _need(srv.step_cache_sizes() == {}, "restore built a step program")
+    ckpt_writer = ServeCheckpointer(ckpt, srv, every_ticks=WIRE_CKPT_EVERY,
+                                    ingest=ingest)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    count_groups(srv)
+    last_msg = [time.monotonic()]
+    handle = ingest.handle_message
+
+    def stamped(msg):
+        last_msg[0] = time.monotonic()
+        return handle(msg)
+
+    ingest.handle_message = stamped
+    stop = serve_in_thread(ingest, sock)
+    print("ready", flush=True)
+    ticks, first_tick = [], None
+    while True:
+        lens = [len(q) for q in srv._queues.values()]
+        queued = sum(lens)
+        quiet = time.monotonic() - last_msg[0] > WIRE_QUIET_S
+        if queued and (queued >= len(lens) or quiet
+                       or max(lens) >= srv.cfg.queue_depth):
+            t0 = time.perf_counter()
+            ingest.tick()
+            torch.cuda.synchronize(device)
+            ticks.append(time.perf_counter() - t0)
+            if first_tick is None and mode == "restore":
+                first_tick = time.perf_counter()
+                print(f"[17d] restore: {first_tick - t_restore:.3f} s from "
+                      f"restore_server to the end of the first served tick "
+                      f"(the clients' reconnects and the step program's "
+                      f"build included; {first_tick - t_start:.3f} s from "
+                      f"the process's start of serving)", flush=True)
+            t0 = time.perf_counter()
+            if ckpt_writer.maybe_save():
+                print(f"[17d] checkpoint at tick {srv.n_ticks}: snapshot "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the tick "
+                      f"path (the write runs on a thread)", flush=True)
+            if mode == "fresh" and srv.n_ticks == WIRE_CRASH_TICK:
+                print(f"[17b] serving process: killed at tick "
+                      f"{srv.n_ticks}", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+        elif os.path.exists(done) and not queued:
+            break
+        else:
+            time.sleep(0.0005)
+    rm = wrappers["reproject_match_fused"].launches
+    qc = wrappers["int8_matmul_pallas/qconv"].launches
+    ckpt_writer.wait()
+    final = str(Path(ckpt).parent / "final")
+    save_server(final, srv.n_ticks, srv, ingest=ingest)  # takes the lock
+    stop()
+    print(json.dumps({"rm_fused": rm, "qconv": qc, "groups": srv.groups,
+                      "ticks": len(ticks), "restored_step": restored_step,
+                      "programs": list(srv.step_cache_sizes().values()),
+                      "final": final}))
+    return 0
+
+
+# -- (c) EVU on the card: benchmarks/evu_accuracy.py's protocol, setting 1.
+
+
+def evu_streams(torch, device, seed, n):
+    """``n`` seeded 64x64 streams of ``EVU_FRAMES`` frames, ``EVU_OBJ``
+    objects, ``EVU_SEG`` fixation segments, rendered on the card."""
+    import numpy as np
+
+    from repro_torch.data import synthetic
+
+    cfg = synthetic.StreamConfig(n_frames=EVU_FRAMES, hw=(EVU_HW, EVU_HW),
+                                 n_obj=EVU_OBJ, n_segments=EVU_SEG)
+    return [synthetic.generate_stream(np.random.default_rng(seed + i), cfg,
+                                      device=device)[0] for i in range(n)]
+
+
+def evu_train_hir(torch, device, streams):
+    """Fine-tune the HIR network on attended-object relevance labels: the
+    benchmark's 300 SGD steps at lr 0.05, batch 64."""
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.core import hir as hir_mod
+    from repro_torch.data import synthetic
+
+    rgb = torch.cat([depth_mod.resize_image(s.frames, hir_mod.HIR_INPUT)
+                     for s in streams])
+    heat = torch.cat([hir_mod.gaze_heatmap(s.gazes, hir_mod.HIR_INPUT,
+                                           (EVU_HW, EVU_HW))
+                      for s in streams])
+    lab = torch.cat([synthetic.patch_relevance_labels(
+        s.obj_id, s.gaze_target, EVU_PATCH) for s in streams])
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    model = hir_mod.init_params(g)
+    grid = EVU_HW // EVU_PATCH
+    for _ in range(300):
+        idx = torch.randint(0, rgb.shape[0], (64,), generator=g,
+                            device=device)
+        loss = hir_mod.loss_fn(model, rgb[idx], heat[idx], lab[idx], grid)
+        model.zero_grad()
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p -= 0.05 * p.grad
+    return model, float(loss.detach())
+
+
+def evu_tokens(torch, device, streams, hir_model):
+    """EPIC at setting 1 (DC buffer ``EVU_CAP``) over every stream, one
+    ``StreamPool`` step a chunk; each export packed into ``EVU_CAP`` tokens
+    with the gaze-proximity saliency of ``benchmarks/evu_accuracy.py``."""
+    from repro_torch.api import EPICCompressor, SensorChunk, StreamPool
+    from repro_torch.core import packing
+    from repro_torch.core import pipeline as pipe
+
+    cfg = pipe.EPICConfig(frame_hw=(EVU_HW, EVU_HW), patch=EVU_PATCH,
+                          capacity=EVU_CAP, tau=0.10, gamma=0.015, theta=8,
+                          window=16)
+    comp = EPICCompressor(cfg, pipe.EPICModels(hir_model=hir_model),
+                          device=device)
+    pool = StreamPool(comp, len(streams))
+    states = pool.init()
+    with torch.no_grad():
+        for lo in range(0, EVU_FRAMES, CHUNK):
+            chunk = SensorChunk(*(torch.stack([getattr(s, f)[lo:lo + CHUNK]
+                                               for s in streams])
+                                  for f in ("frames", "poses", "gazes",
+                                            "depth")))
+            states, _ = pool.step(states, chunk)
+        rps = pool.export(states)
+    out = []
+    for i, s in enumerate(streams):
+        rp = type(rps)(*(None if x is None else x[i] for x in rps))
+        ti = rp.t.to(torch.int32).clamp(0, s.gazes.shape[0] - 1)
+        center = rp.origin.flip(-1) + EVU_PATCH / 2.0
+        d = torch.linalg.norm(center - s.gazes[ti.long()], dim=-1)
+        prox = torch.exp(-0.5 * (d / EVU_PATCH) ** 2)
+        out.append(packing.pack_retained(rp, EVU_CAP, float(EVU_FRAMES),
+                                         float(EVU_HW), saliency=prox))
+    return out
+
+
+def evu_questions(torch, streams, token_sets):
+    """(stream tokens, segment) -> attended-object questions, as
+    ``benchmarks/evu_accuracy.py:162-185`` builds them."""
+    toks, masks, segs, labels = [], [], [], []
+    for s, ts in zip(streams, token_sets):
+        seg_of = s.segment_of_frame.cpu()
+        tgt = s.gaze_target.cpu()
+        targets = [int(tgt[seg_of == seg][0]) for seg in range(EVU_SEG)]
+        for seg in range(EVU_SEG):
+            toks.append(ts.tokens)
+            masks.append(ts.mask)
+            segs.append(seg)
+            labels.append(targets[seg] - 1)
+    dev = toks[0].device
+    return {"tokens": torch.stack(toks), "mask": torch.stack(masks),
+            "seg": torch.tensor(segs, dtype=torch.int32, device=dev),
+            "label": torch.tensor(labels, dtype=torch.int32, device=dev)}
+
+
+def phase_evu(torch, device, card):
+    """Phase 17 (c): the EVU probe on the card, trained as Table 1's
+    setting 1, and its forward, gradient and Adam step against the CPU."""
+    from repro_torch.core import evu
+
+    train = evu_streams(torch, device, SEED + 3000, EVU_TRAIN)
+    test = evu_streams(torch, device, SEED + 4000, EVU_TEST)
+    hir_model, hir_loss = evu_train_hir(torch, device, train)
+    train_ds = evu_questions(torch, train,
+                             evu_tokens(torch, device, train, hir_model))
+    test_ds = evu_questions(torch, test,
+                            evu_tokens(torch, device, test, hir_model))
+    cfg = evu.EVUConfig(n_classes=EVU_OBJ, n_segments=EVU_SEG, batch=16,
+                        d_model=64, lr=2e-3, steps=450)
+    _need(tuple(train_ds["tokens"].shape[1:]) == (EVU_CAP, 198)
+          and bool(train_ds["mask"].any()), "EVU: token streams malformed")
+
+    # forward, the gradient of loss_fn and one Adam step: card vs CPU
+    p0 = evu.init_params(torch.Generator(device=device).manual_seed(SEED),
+                         cfg)
+    batch = {k: x[:cfg.batch] for k, x in train_ds.items()}
+    cpu = {k: x.cpu() for k, x in batch.items()}
+    p_cpu = evu.tree_map(lambda x: x.cpu(), p0)
+    errs = {}
+    errs["forward"] = float((evu.forward(p0, batch["tokens"], batch["mask"],
+                                         batch["seg"], cfg).cpu()
+                             - evu.forward(p_cpu, cpu["tokens"], cpu["mask"],
+                                           cpu["seg"], cfg)).abs().max())
+    _, g = evu.grad(p0, batch, cfg)
+    _, g_cpu = evu.grad(p_cpu, cpu, cfg)
+    errs["grad"] = max(float((a.cpu() - b).abs().max()
+                             / max(1.0, float(b.abs().max())))
+                       for a, b in zip(evu.leaves(g), evu.leaves(g_cpu)))
+    # The Adam update is held on one gradient, the CPU's (the gradients
+    # themselves are held above): Adam's first step is lr * g / (|g| + eps),
+    # so a gradient entry within rounding of 0 may take either sign.
+    zeros = evu.tree_map(torch.zeros_like, p0)
+    zeros_cpu = evu.tree_map(torch.zeros_like, p_cpu)
+    p1 = evu.adam_update(p0, zeros, zeros,
+                         evu.tree_map(lambda x: x.to(device), g_cpu), 0,
+                         cfg)[0]
+    p1_cpu = evu.adam_update(p_cpu, zeros_cpu, zeros_cpu, g_cpu, 0, cfg)[0]
+    errs["adam"] = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(evu.leaves(p1), evu.leaves(p1_cpu)))
+    _need(all(v <= EVU_TOL for v in errs.values()),
+          f"EVU on the card differs from the CPU: {errs}")
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    acc, params = evu.train_eval(SEED, train_ds, test_ds, cfg, device=device)
+    torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    _need(all(bool(torch.isfinite(x).all()) for x in evu.leaves(params)),
+          "EVU: non-finite parameters after training")
+    _need(acc > 1.0 / EVU_OBJ, f"EVU: test accuracy {acc:.3f} is no better "
+          f"than chance ({1 / EVU_OBJ:.2f})")
+    print(f"[17c] EVU on the card: forward, gradient (relative to the "
+          f"leaf's scale) and one Adam update on the CPU's gradient against "
+          f"the CPU: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit {EVU_TOL:g})")
+    print(f"[17d] {card}: EVU (Table 1 setting 1: {EVU_TRAIN} train and "
+          f"{EVU_TEST} test streams, DC buffer {EVU_CAP}, HIR fine-tuned to "
+          f"loss {hir_loss:.4f}): {cfg.steps} Adam steps in {dt:.2f} s, "
+          f"{cfg.steps / dt:.1f} train steps/s; test accuracy {acc:.4f} on "
+          f"{test_ds['label'].shape[0]} questions")
 
 
 # ---------------------------------------------------------------------------
 
 
 def phase_serve_process() -> dict:
-    """Phase 16 in a process of its own (``chip_smoke.py --serve``), on the
+    """Phases 16-17 in a process of its own (``chip_smoke.py --serve``), on the
     libraries phase 1 built: after the earlier phases, ``torch.profiler``
     in this process recorded no device event for phase 16's calls (a
     fresh process records them; the cause was not found).  Its lines pass
@@ -2681,15 +3538,17 @@ def phase_serve_process() -> dict:
                           "--serve"], stdout=subprocess.PIPE, text=True,
                          timeout=900)
     lines = out.stdout.splitlines()
-    print("\n".join(lines[:-1]), flush=True)
+    # The last line is the results' JSON, unless the process failed.
+    print("\n".join(lines[:-1] if out.returncode == 0 else lines),
+          flush=True)
     _need(out.returncode == 0 and lines,
-          f"phase 16 failed (exit {out.returncode})")
+          f"phases 16-17 failed (exit {out.returncode})")
     return json.loads(lines[-1])["serve"]
 
 
 def serve_main() -> int:
-    """``chip_smoke.py --serve``: phase 16 alone; prints its results as
-    one JSON line, last."""
+    """``chip_smoke.py --serve``: phases 16 and 17; prints their results
+    as one JSON line, last."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -2697,7 +3556,10 @@ def serve_main() -> int:
     torch.cuda.set_device(device)
     set_numerics(torch)
     errs, times = phase_serve_kernels(torch, device)
-    launches = phase_serve(torch, device, card_line())
+    card = card_line()
+    ctx = phase_serve(torch, device, card)
+    launches = phase_wire(torch, device, card, ctx)
+    phase_evu(torch, device, card)
     print(json.dumps({"serve": {"errs": errs, "times": times,
                                 "launches": launches}}))
     return 0
@@ -2763,4 +3625,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wire-server"]:
+        sys.exit(wire_server_main(*sys.argv[2:6]))
     sys.exit(serve_main() if sys.argv[1:] == ["--serve"] else main())

@@ -156,6 +156,35 @@ def hybrid_from_jax(params_np, cfg: ModelConfig, device=None):
     return _model_from_jax(mamba2, params_np, cfg, device)
 
 
+def evu_from_jax(params_np, device=None):
+    """The EVU probe's parameters (``repro.core.evu``) as the port's dict
+    of float32 tensors on ``device``.  Both keep the reference's layout
+    (``(d_in, d_out)`` matrices, a ``"layers"`` list), so this checks the
+    tree and moves the leaves."""
+    from repro_torch.core import evu
+
+    device = resolve_device(device)
+    if not isinstance(params_np, Mapping) or "layers" not in params_np:
+        raise ValueError("not an EVU parameter tree: no 'layers' list")
+    n_layers = len(params_np["layers"])
+    d_model = np.shape(params_np["cls"])[0]
+    cfg = evu.EVUConfig(
+        d_model=d_model, n_layers=n_layers,
+        n_classes=np.shape(params_np["out"])[1],
+        n_segments=np.shape(params_np["seg_embed"])[0],
+    )
+    expected = evu.init_params(torch.Generator(), cfg)  # shapes only
+    top = {k: v for k, v in expected.items() if k != "layers"}
+    got_top = {k: v for k, v in params_np.items() if k != "layers"}
+    out = _tree_from_jax(top, got_top, "", device)
+    out["layers"] = [
+        _tree_from_jax(e, gl, f"/layers/{i}", device)
+        for i, (e, gl) in enumerate(zip(expected["layers"],
+                                        params_np["layers"]))
+    ]
+    return out
+
+
 def _model_from_jax(module, params_np, cfg: ModelConfig, device):
     device = resolve_device(device)
     expected = module.init(None, cfg, torch.device("meta"))

@@ -75,6 +75,18 @@ def binary_saliency(logits: Tensor) -> Tensor:
     return logits > 0.0
 
 
+def loss_fn(model: HIRNet, rgb64: Tensor, heat64: Tensor, labels: Tensor,
+            patch_grid: int) -> Tensor:
+    """BCE against ground-truth patch relevance labels ``(B, G, G)`` in
+    {0, 1}, in the reference's form ``max(x, 0) - x y + log1p(exp(-|x|))``
+    (``F.binary_cross_entropy_with_logits`` rounds differently)."""
+    logits = forward(model, rgb64, heat64, patch_grid)
+    return torch.mean(
+        logits.clamp_min(0) - logits * labels
+        + torch.log1p(torch.exp(-logits.abs()))
+    )
+
+
 def n_params(model: HIRNet) -> int:
     """The network's number of scalar parameters."""
     return sum(int(p.numel()) for p in model.parameters())

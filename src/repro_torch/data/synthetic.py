@@ -273,6 +273,18 @@ def generate_stream(
     return stream, scene
 
 
+def patch_relevance_labels(obj_id: Tensor, gaze_target: Tensor,
+                           patch: int) -> Tensor:
+    """HIR training labels: a patch is relevant iff more than 2% of its
+    pixels belong to the attended object.  ``obj_id`` (T, H, W),
+    ``gaze_target`` (T,) -> (T, G, G) float32 in {0, 1}."""
+    t, h, _ = obj_id.shape
+    g = h // patch
+    m = (obj_id == gaze_target[:, None, None]).to(torch.float32)
+    m = m[:, : g * patch, : g * patch].reshape(t, g, patch, g, patch)
+    return (m.mean(dim=(2, 4)) > 0.02).to(torch.float32)
+
+
 def depth_training_batch(
     rng: np.random.Generator, cfg: StreamConfig, batch: int, device=None
 ) -> Tuple[Tensor, Tensor]:

@@ -1,13 +1,16 @@
-"""repro_torch.obs — the observability layer the serving runtime needs
-(port of ``repro.obs``; ``status`` and ``dump`` wait for ROADMAP Queue 1
-item 4):
+"""repro_torch.obs — the observability layer of the serving runtime
+(port of ``repro.obs``):
 
   Counter, Gauge, Histogram, MetricsRegistry,
   counter_property, gauge_property        (metrics) typed metrics registry
   FlightRecorder, NULL_SPAN, TICK_PHASES,
   EVENT_NAMES                             (trace)   per-tick span tracing
+  collect_status, STATUS_SCHEMA           (status)  the STATUS frame's
+                                                    introspection snapshot
 
-Both modules are host-side Python; the names load lazily, as in the
+``python -m repro_torch.obs.dump trace.json`` summarizes a flight dump.
+
+Every module is host-side Python; the names load lazily, as in the
 reference.
 """
 
@@ -24,6 +27,8 @@ _LAZY = {
     "NULL_SPAN": "repro_torch.obs.trace",
     "TICK_PHASES": "repro_torch.obs.trace",
     "EVENT_NAMES": "repro_torch.obs.trace",
+    "collect_status": "repro_torch.obs.status",
+    "STATUS_SCHEMA": "repro_torch.obs.status",
 }
 
 __all__ = list(_LAZY)

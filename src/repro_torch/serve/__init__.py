@@ -18,6 +18,10 @@ serving steps (port of ``repro.serve``).
   StreamServer, ServerConfig               (server)    the serving loop
   DegradeController, DegradeConfig,
   LevelPolicy, validate_degrade            (degrade)   graceful degradation
+  ServeCheckpointer, save_server,
+  restore_server, snapshot_server          (checkpoint) live-slot snapshot
+                                                       and restore into a
+                                                       fresh process
   StreamTelemetry, tick_readback,
   pool_stream_counters                     (telemetry) per-stream counters,
                                                        one sync per tick
@@ -25,7 +29,6 @@ serving steps (port of ``repro.serve``).
   greedy_decode_loop                       (efm)       the EFM prefill/decode
                                                        steps
 
-The reference's ``checkpoint`` names wait for ROADMAP.md Queue 1 item 4.
 Everything loads lazily, as there: ``repro_torch.api`` imports
 ``adaptive``, so this package must not pull the serving stack or the
 model zoo in ``efm`` at import time.
@@ -50,6 +53,10 @@ _LAZY = {
     "DegradeConfig": "repro_torch.serve.degrade",
     "LevelPolicy": "repro_torch.serve.degrade",
     "validate_degrade": "repro_torch.serve.degrade",
+    "ServeCheckpointer": "repro_torch.serve.checkpoint",
+    "save_server": "repro_torch.serve.checkpoint",
+    "restore_server": "repro_torch.serve.checkpoint",
+    "snapshot_server": "repro_torch.serve.checkpoint",
     "StreamTelemetry": "repro_torch.serve.telemetry",
     "tick_readback": "repro_torch.serve.telemetry",
     "pool_stream_counters": "repro_torch.serve.telemetry",

@@ -36,19 +36,22 @@ from repro_torch.api.types import SensorChunk
 
 def chunk_to_device(chunk: SensorChunk, device: torch.device) -> SensorChunk:
     """Every field of ``chunk`` as a contiguous float32 tensor on
-    ``device``.  Host data bound for the card is staged in pinned memory
-    and copied ``non_blocking`` on the current stream: the copy makes no
-    host sync and is ordered before any later work on that stream."""
+    ``device``, in memory of its own: never a view of the caller's
+    buffer, which the caller may reuse.  Host data bound for the card is
+    staged in pinned memory and copied ``non_blocking`` on the current
+    stream: the copy makes no host sync and is ordered before any later
+    work on that stream."""
 
     def put(x):
         if x is None:
             return None
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.array(x, dtype=np.float32))
-        x = x.to(torch.float32)
         if device.type == "cuda" and x.device.type == "cpu":
-            x = x.contiguous().pin_memory().to(device, non_blocking=True)
-        return x.to(device).contiguous()
+            staged = x.to(torch.float32).contiguous().pin_memory()
+            return staged.to(device, non_blocking=True)
+        return x.to(device, torch.float32, copy=True,
+                    memory_format=torch.contiguous_format)
 
     return SensorChunk(*(put(x) for x in chunk))
 
@@ -182,15 +185,23 @@ class ChunkQueue:
         ts: Optional[float] = None,
         tick: Optional[int] = None,
     ) -> bool:
-        if len(self._q) >= self.maxlen:
-            if self.policy == "refuse":
-                self.n_overflow += 1
-                return False
+        if self.refuse_if_full():
+            return False
+        if len(self._q) >= self.maxlen:  # "drop_oldest"
             self._q.popleft()
             self.n_dropped += 1
         self._q.append((chunk, self.clock() if ts is None else ts, tick))
         self.n_pushed += 1
         return True
+
+    def refuse_if_full(self) -> bool:
+        """Whether a push now is refused (a full ``"refuse"`` queue),
+        counting the refusal in ``n_overflow``.  :meth:`push` refuses
+        through it; a caller may ask first, before it copies the chunk."""
+        if len(self._q) >= self.maxlen and self.policy == "refuse":
+            self.n_overflow += 1
+            return True
+        return False
 
     def pop(self) -> Optional[SensorChunk]:
         return self._q.popleft()[0] if self._q else None

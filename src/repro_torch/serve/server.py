@@ -20,7 +20,12 @@ One card ingests a churning population of glasses streams:
   every stepped tier's reductions feeding the controllers and the
   per-stream :class:`~repro_torch.serve.telemetry.StreamTelemetry`;
 * :meth:`drain` is the double-buffered loop: the next tick's chunks are
-  submitted *between* dispatching the current step and its readback.
+  submitted *between* dispatching the current step and its readback;
+* the server's device work runs on one CUDA stream, the caller's current
+  stream at construction, whichever thread calls :meth:`submit` or
+  :meth:`tick` (the wire frontier submits from its event-loop thread):
+  a chunk's upload is ordered before the step that reads it.  A chunk
+  that a full queue refuses is refused before it is copied anywhere.
 
 **Tiered serving** (``ServerConfig.tiers``): the device state becomes a
 :class:`~repro_torch.serve.tiers.TieredPool`; a tier is stepped only when
@@ -43,7 +48,7 @@ new one).  The reference's mesh mode waits for ROADMAP.md Queue 1 item 6.
 from __future__ import annotations
 
 import time
-from functools import reduce
+from functools import reduce, wraps
 from typing import (
     Any,
     Dict,
@@ -128,6 +133,19 @@ class ServerConfig(NamedTuple):
     k_trajectory_limit: Optional[int] = None
 
 
+def _on_stream(method):
+    """Run a server method with the server's CUDA stream current."""
+
+    @wraps(method)
+    def run(self, *args, **kw):
+        if self._stream is None:
+            return method(self, *args, **kw)
+        with torch.cuda.stream(self._stream):
+            return method(self, *args, **kw)
+
+    return run
+
+
 class StreamServer:
     """A live serving runtime over a slotted compressor pool."""
 
@@ -191,6 +209,12 @@ class StreamServer:
         self.cfg = config
         self.compressor = compressor
         self.device = compressor.device
+        # Every device operation of the server goes on this stream, from
+        # any thread (CUDA's current stream is per thread).
+        self._stream = (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None
+        )
         # The metrics registry: every serve_* counter below is a
         # property over one of its cells.  Must exist before the first
         # counter attribute is touched.
@@ -302,6 +326,7 @@ class StreamServer:
 
     # -- admission / eviction ------------------------------------------------
 
+    @_on_stream
     def admit(self, session_id: Hashable) -> int:
         """Admit a stream into a free slot (fresh session state).
 
@@ -362,6 +387,7 @@ class StreamServer:
         except RuntimeError:
             return None
 
+    @_on_stream
     def close(self, session_id: Hashable) -> StreamTelemetry:
         """Explicitly evict a stream; returns its final telemetry."""
         self.pool.evict_session(session_id)
@@ -382,14 +408,16 @@ class StreamServer:
 
     # -- ingest --------------------------------------------------------------
 
+    @_on_stream
     def submit(self, session_id: Hashable, chunk: SensorChunk) -> bool:
         """Queue one chunk for a live stream.
 
-        The chunk goes to the device now (``non_blocking`` from pinned
-        memory, no host sync), so a tick's dispatch only stacks device
-        tensors.  Returns ``False`` (and counts backpressure) when the
+        The chunk is copied to the device now (``non_blocking`` from
+        pinned memory, no host sync), so a tick's dispatch only stacks
+        device tensors and the queue never holds a view of the caller's
+        buffer.  Returns ``False`` (and counts backpressure) when the
         stream's bounded queue is full — the producer should retry after a
-        tick.
+        tick; a refused chunk is not copied.
         """
         if chunk.n_frames != self.cfg.chunk_frames:
             raise ValueError(
@@ -399,16 +427,16 @@ class StreamServer:
         q = self._queues.get(session_id)
         if q is None:
             raise KeyError(f"session {session_id!r} is not admitted")
+        if q.refuse_if_full():
+            self._telemetry[session_id].n_queue_overflow += 1
+            self.n_backpressure += 1
+            return False
         chunk = chunk_to_device(chunk, self.device)
         if self._zero_chunk is None:
             self._zero_chunk = SensorChunk(*(
                 None if x is None else torch.zeros_like(x) for x in chunk
             ))
-        ok = q.push(chunk, tick=self.n_ticks)
-        if not ok:
-            self._telemetry[session_id].n_queue_overflow += 1
-            self.n_backpressure += 1
-        return ok
+        return q.push(chunk, tick=self.n_ticks)
 
     # -- tracing hooks -------------------------------------------------------
 
@@ -732,6 +760,7 @@ class StreamServer:
 
     # -- tick / drain --------------------------------------------------------
 
+    @_on_stream
     def tick(self) -> List[Hashable]:
         """Serve one tick: step every stream with a pending chunk.
 
@@ -748,6 +777,7 @@ class StreamServer:
         self._finish(stats, groups, keys)
         return [sid for sids in groups.values() for sid in sids]
 
+    @_on_stream
     def drain(
         self,
         feeds: Dict[Hashable, Iterable[SensorChunk]],
@@ -845,11 +875,14 @@ class StreamServer:
     def block_until_ready(self) -> None:
         self.pool.block_until_ready()
 
+    @_on_stream
     def state(self, session_id: Hashable):
         return self.pool.session_state(session_id)
 
+    @_on_stream
     def export(self, session_id: Hashable):
         return self.pool.export(session_id)
 
+    @_on_stream
     def tokens(self, session_id: Hashable, seq_len: int):
         return self.pool.tokens(session_id, seq_len)

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card: reproject-match, flash attention, int8
-matmul and the fused int8 convolution, and the RWKV6 and Mamba-2 SSD scans
-(marked ``cuda``; skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
+matmul and the fused int8 convolution, and the RWKV6 and Mamba-2 SSD scans;
+the serving pool, directly and through the wire codec; the checkpoint
+store on card tensors; the EVU probe against the CPU (marked ``cuda``;
+skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -815,3 +817,138 @@ def test_server_dispatch_makes_no_host_sync_and_equals_solo(device):
         for got, want in zip(torch.utils._pytree.tree_leaves(srv.state(i)),
                              torch.utils._pytree.tree_leaves(state)):
             assert torch.equal(got, want), i
+
+
+def test_codec_decodes_to_card_tensors_bitwise(device):
+    """A chunk of card tensors (every field dtype the serving path uses,
+    bfloat16 among them) encodes with one fetch to the host and decodes to
+    views whose copy on the card is bitwise the original."""
+    from repro_torch.api import SensorChunk
+    from repro_torch.wire import codec
+
+    g = torch.Generator(device=device).manual_seed(0)
+    chunk = SensorChunk(
+        torch.rand((8, 64, 64, 3), generator=g, device=device),
+        torch.rand((8, 4, 4), generator=g, device=device,
+                   dtype=torch.float64),
+        torch.rand((8, 2), generator=g, device=device).to(torch.bfloat16),
+        torch.randint(0, 255, (8, 64, 64), generator=g, device=device,
+                      dtype=torch.uint8),
+    )
+    msg = codec.encode_chunk(chunk, stream_id=3, seq=1, timestamp_ns=2)
+    back = codec.decode_frame(msg).chunk
+    for a, b in zip(chunk, back):
+        assert b.device.type == "cpu" and b.dtype == a.dtype
+        assert torch.equal(b.to(device), a)
+
+
+def test_pool_served_through_loopback_equals_direct_submit(device):
+    """Oracle depth on the card: the same chunks through EPWF bytes,
+    ``Loopback`` and a strict-seq ``IngestServer`` end bitwise equal to
+    direct ``submit``; a backpressured frame copies nothing to the card."""
+    from repro_torch.api import EPICCompressor
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve import ServerConfig, StreamServer
+    from repro_torch.wire import codec
+    from repro_torch.wire.server import IngestServer, Loopback
+
+    cfg = pipe.EPICConfig(frame_hw=(64, 64), capacity=32, window=16)
+    streams = _serve_streams(device, 4, n_chunks=3)
+    servers = [StreamServer(EPICCompressor(cfg, device=device),
+                            ServerConfig(capacity=8, chunk_frames=8))
+               for _ in range(2)]
+    direct, wired = servers
+    loop = Loopback(IngestServer(wired, strict_seq=True))
+    for i in range(4):
+        direct.admit(i)
+        assert loop.send(codec.encode_control(codec.OP_OPEN, i)).ok
+    for c in range(3):
+        for i, chunks in enumerate(streams):
+            assert direct.submit(i, chunks[c])
+            assert loop.send(codec.encode_chunk(chunks[c], stream_id=i,
+                                                seq=c, timestamp_ns=c)).ok
+        direct.tick()
+        loop.ingest.tick()
+    for i in range(4):
+        for got, want in zip(torch.utils._pytree.tree_leaves(wired.state(i)),
+                             torch.utils._pytree.tree_leaves(direct.state(i))):
+            assert torch.equal(got, want), i
+    for seq in range(3, 5):
+        assert loop.send(codec.encode_chunk(streams[0][0], stream_id=0,
+                                            seq=seq, timestamp_ns=0)).ok
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    r = loop.send(codec.encode_chunk(streams[0][0], stream_id=0, seq=5,
+                                     timestamp_ns=0))
+    assert r.status_name == "backpressure"
+    assert torch.cuda.max_memory_allocated(device) == before
+
+
+def test_store_round_trips_card_tensors(device, tmp_path):
+    from repro_torch.checkpoint import store
+
+    g = torch.Generator(device=device).manual_seed(1)
+    tree = {"w": torch.randn((64, 32), generator=g, device=device),
+            "b": torch.randn((32,), generator=g,
+                             device=device).to(torch.bfloat16),
+            "n": torch.arange(5, device=device, dtype=torch.int32),
+            "flags": torch.rand(7, generator=g, device=device) < 0.5,
+            "step": 3}
+    want = {k: v.clone() for k, v in tree.items() if k != "step"}
+    saver = store.AsyncSaver()
+    saver.save(str(tmp_path), 1, tree)
+    tree["w"].add_(1.0)  # the snapshot was taken at the call
+    saver.wait()
+    out, step = store.restore(str(tmp_path), tree)
+    assert step == 1 and out["step"] == 3
+    for k, v in want.items():
+        assert out[k].device == v.device and out[k].dtype == v.dtype
+        assert torch.equal(out[k], v), k
+
+
+def test_evu_on_the_card_matches_the_cpu(device):
+    """``forward``, ``loss_fn``'s gradient and one Adam update on the card
+    within 1e-5 of the same calls on the CPU (TF32 off), the logits and
+    gradients relative to their largest entry where it exceeds 1 (cuBLAS
+    and the CPU sum the products in other orders).  The update is held on
+    one gradient, the CPU's: Adam's first step is ``lr * g / (|g| + eps)``,
+    so a gradient entry within rounding of 0 may take either sign."""
+    from repro_torch.core import evu
+    from repro_torch.core.packing import TOKEN_FEAT
+
+    cfg = evu.EVUConfig(d_model=64, n_classes=5, n_segments=4, batch=16,
+                        lr=2e-3)
+    p = evu.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    g = torch.Generator(device=device).manual_seed(1)
+    batch = {
+        "tokens": torch.rand((16, 48, TOKEN_FEAT), generator=g,
+                             device=device),
+        "mask": torch.rand((16, 48), generator=g, device=device) < 0.8,
+        "seg": torch.randint(0, 4, (16,), generator=g, device=device,
+                             dtype=torch.int32),
+        "label": torch.randint(0, 5, (16,), generator=g, device=device,
+                               dtype=torch.int32),
+    }
+    p_cpu = evu.tree_map(lambda x: x.cpu(), p)
+    cpu = {k: x.cpu() for k, x in batch.items()}
+    want = evu.forward(p_cpu, cpu["tokens"], cpu["mask"], cpu["seg"], cfg)
+    torch.testing.assert_close(
+        evu.forward(p, batch["tokens"], batch["mask"], batch["seg"],
+                    cfg).cpu(),
+        want, atol=1e-5 * max(1.0, float(want.abs().max())), rtol=0)
+    _, grads = evu.grad(p, batch, cfg)
+    _, grads_cpu = evu.grad(p_cpu, cpu, cfg)
+    for a, b in zip(evu.leaves(grads), evu.leaves(grads_cpu)):
+        torch.testing.assert_close(
+            a.cpu(), b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
+    zeros = evu.tree_map(torch.zeros_like, p)
+    zeros_cpu = evu.tree_map(torch.zeros_like, p_cpu)
+    g = evu.tree_map(lambda x: x.to(device), grads_cpu)
+    for i in (0, 7):
+        got = evu.adam_update(p, zeros, zeros, g, i, cfg)
+        want = evu.adam_update(p_cpu, zeros_cpu, zeros_cpu, grads_cpu, i,
+                               cfg)
+        for x, y in zip(got, want):
+            for a, b in zip(evu.leaves(x), evu.leaves(y)):
+                torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)

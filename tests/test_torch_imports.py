@@ -167,9 +167,9 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
 
 def test_serve_names_resolve_lazily_without_jax():
     """``repro_torch.serve`` maps every name of the reference's ``_LAZY``
-    table but the checkpoint ones (ROADMAP.md Queue 1 item 4) to its
-    module; importing the package loads none of them, and nothing imports
-    JAX.  ``repro_torch.obs`` and ``repro_torch.api.StreamPool`` likewise."""
+    table, the checkpoint ones included, to its module; importing the
+    package loads none of them, and nothing imports JAX.
+    ``repro_torch.obs`` and ``repro_torch.api.StreamPool`` likewise."""
     code = ("import importlib, re, sys\n"
             "sys.modules['jax'] = None\n"
             "import repro_torch, repro_torch.serve as s\n"
@@ -177,7 +177,7 @@ def test_serve_names_resolve_lazily_without_jax():
             "assert 'repro_torch.serve.server' not in sys.modules\n"
             "ref = open('src/repro/serve/__init__.py').read()\n"
             "names = re.findall(r'\"(\\w+)\": \"repro\\.serve\\.(\\w+)\"', ref)\n"
-            "want = sorted(n for n, m in names if m != 'checkpoint')\n"
+            "want = sorted(n for n, m in names)\n"
             "assert sorted(s.__all__) == want, sorted(s.__all__)\n"
             "for name in want:\n"
             "    mod = importlib.import_module(s._LAZY[name])\n"
@@ -218,3 +218,62 @@ def test_serve_lazy_table_is_the_references_where_ported():
     ref_lazy = dict(re.findall(r'"(\w+)": "repro\.serve\.(\w+)"', ref))
     for name, mod in serve._LAZY.items():
         assert mod == f"repro_torch.serve.{ref_lazy[name]}", name
+
+
+_NEW_MODULES = (
+    "repro_torch.wire", "repro_torch.wire.codec", "repro_torch.wire.server",
+    "repro_torch.wire.trace", "repro_torch.wire.loadgen",
+    "repro_torch.wire.latency", "repro_torch.wire.fault",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.runtime", "repro_torch.runtime.fault",
+    "repro_torch.obs.status", "repro_torch.obs.dump",
+    "repro_torch.serve.checkpoint", "repro_torch.core.evu",
+)
+
+
+@pytest.mark.parametrize("module", _NEW_MODULES)
+def test_wire_checkpoint_runtime_and_evu_import_without_jax(module):
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"importlib.import_module({module!r})\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_wire_lazy_table_is_the_references_and_resolves():
+    """``repro_torch.wire`` maps every name of the reference's table to the
+    same module of the port; each resolves, and importing the package
+    loads neither the server nor the serving stack."""
+    import re
+
+    ref = (ROOT / "src" / "repro" / "wire" / "__init__.py").read_text()
+    ref_lazy = dict(re.findall(r'"(\w+)": "repro\.wire\.(\w+)"', ref))
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "import repro_torch.wire as w\n"
+            "assert 'repro_torch.wire.server' not in sys.modules\n"
+            "assert 'repro_torch.serve.server' not in sys.modules\n"
+            "for name in w.__all__:\n"
+            "    mod = importlib.import_module(w._LAZY[name])\n"
+            "    assert getattr(w, name) is getattr(mod, name), name\n"
+            "try:\n"
+            "    w.bogus\n"
+            "except AttributeError:\n"
+            "    pass\n"
+            "else:\n"
+            "    raise AssertionError('bogus resolved')\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    from repro_torch import wire
+
+    assert {n: m.rsplit(".", 1)[1] for n, m in wire._LAZY.items()} \
+        == ref_lazy
