@@ -191,11 +191,39 @@ and prints no result line):
    figure, NACKs by reason, checkpoint snapshot time and bytes on disk a
    slot, restore time to the first served tick, EVU train steps/s and
    test accuracy.
+18. The rest of the zoo at full width, in the main process after phase
+   15 (before 16-17), phase 7's prompts, seeded random bf16 weights drawn
+   on the card, each model freed before the next.  (a) DeepSeek-V2-Lite-16B
+   (MLA, 64 experts top-6 + 2 shared) on ``attn_backend="chunked"`` and
+   ``"ref"`` (MLA has no kernel): prefill and 8 greedy tokens, held by
+   phase 7's bf16 rule; readings: the cache bytes a token (MLA against
+   decompressed K/V), capacity C and the dropped share of the first MoE
+   layer's assignments at the prefill, the decode beside the bytes of
+   every parameter; profiled with the expert products' share (a
+   ``record_function`` range); float32 at 1 dense + 2 MoE layers,
+   capacity factor 8: the absorbed decode at position t after a prefill
+   of t tokens within 1e-3 of the forward's logits at t.
+   (b) Llama-3.2-Vision-11B with its tanh gates drawn nonzero and a seeded
+   (4, 1600, 4096) ``img_embed``: prefill (40 flash launches, wgmma at
+   head dim 128, GQA 32/8) and 8 greedy tokens on ``"pallas"`` and
+   ``"ref"`` (phase 7's bf16 rule); the Figure-1 chain: phase 11's int8
+   EPIC session's ``tokens(state, capacity)`` projected to d_model by a
+   seeded matrix and tiled over the batch as ``img_embed``, prefill and 8
+   tokens, the cross-KV cache bytes at N and at 1600; profiled with the
+   flash kernel's share; float32 at 2 groups (10 self layers, 3xTF32
+   flash) within 1e-3 of ``"ref"``.  (c) SeamlessM4T-large-v2 on a seeded
+   (4, 512, 1024) ``src_embed``: forward (48 flash launches: 24
+   non-causal at S 512, 24 causal at S 1024) on ``"pallas"`` and
+   ``"ref"``, the last position's logits within 0.5; prefill (the encoder
+   and the cross cache: 24 launches) and 8 greedy tokens from position 0;
+   profiled; float32 at 2 + 2 layers within 1e-3.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
-main path; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
-float32, with the launches of phase 7's float32 prefill; and
+main path, with the launches of phase 7's prefill and phase 18's bf16 VLM
+prefill and SeamlessM4T forward; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
+float32, with the launches of phase 7's float32 prefill and of phase
+18's float32 ``"pallas"`` VLM prefill and SeamlessM4T forward; and
 ``flash_attention_pallas/tf32_d160``, the same kernel in bf16 at head dim
 160, with the launches of phase 15's Zamba2-2.7B prefill; the int8 kernel
 two: ``int8_matmul_pallas/qconv``, the fused launch of the int8 main path,
@@ -286,6 +314,11 @@ F32_LOGIT_TOL = 1e-3
 # the CPU: 0.055 in logits of std 1).  A differing greedy token must come
 # from two candidates within this margin in both runs' logits.
 BF16_LOGIT_TOL = 0.5
+# bf16 MLA on "chunked" vs "ref" over one layer, relative to the largest
+# |output|: "ref" rounds its probabilities to bf16 before the product with
+# v, "chunked" keeps them in f32, and both round the output to bf16 (one
+# unit in the last place is 2^-8 of it): 2e-2 is a few such units.
+MLA_BF16_TOL = 2e-2
 INT8_OP_PER_S = 1979e12  # tensor cores, dense
 TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 # int8 matmul: the reference test's shapes (tests/test_kernels.py:136-139)
@@ -345,6 +378,17 @@ WIRE_QUIET_S = 0.05  # the serving process ticks a partial round after this
 EVU_HW, EVU_PATCH, EVU_FRAMES, EVU_OBJ, EVU_SEG = 64, 16, 40, 5, 4
 EVU_CAP, EVU_TRAIN, EVU_TEST = 48, 24, 12
 EVU_TOL = 1e-5
+# Phase 18: the MoE/MLA, VLM and encoder-decoder answer paths at full
+# width, phase 7's prompts and ZOO_NEW greedy tokens; the float32 checks'
+# cut depths (MoE layers after the dense one; VLM groups of 5 self layers;
+# encoder and decoder layers each); the Figure-1 chain's projection of
+# EPIC's token features to d_model is seeded, times this scale.
+ZOO_MOE = "deepseek-v2-lite-16b"
+ZOO_VLM = "llama-3.2-vision-11b"
+ZOO_ENCDEC = "seamless-m4t-large-v2"
+ZOO_NEW = 8
+ZOO_F32_MOE, ZOO_F32_GROUPS, ZOO_F32_ENCDEC = 2, 2, 2
+FIG1_PROJ_SCALE = 0.05
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -645,6 +689,14 @@ def device_profile(torch, fn):
     """One ``fn()`` under ``torch.profiler``: ``(device busy us, device
     launches, the device rows of key_averages())``."""
     from torch.autograd import DeviceType
+
+    rows = [e for e in profiled(torch, fn) if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows),
+            sum(e.count for e in rows), rows)
+
+
+def profiled(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: its ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
 
     # An empty session first: two runs of phase 16c counted 6 more device
@@ -657,9 +709,7 @@ def device_profile(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in rows),
-            sum(e.count for e in rows), rows)
+    return prof.key_averages()
 
 
 def device_launches_per_call(torch, fn, calls=5, tries=3):
@@ -1009,13 +1059,27 @@ def fa_check(torch, label, q, k, v, causal):
 def phase_flash(torch, device):
     """Returns the largest |kernel - plain| at the main path's shape of the
     bf16 wgmma instance (the path's) and of the float32 3xTF32 instance,
-    and at Zamba2-2.7B's shared attention of the bf16 3xTF32 instance."""
+    and at Zamba2-2.7B's shared attention of the bf16 3xTF32 instance.
+    Phase 18's calls are held at their shapes, in the models' layout."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.models import encdec
 
     main = (EFM_BATCH, 32, 4, EFM_PROMPT, 64, True)
+    vlm, ed = get_config(ZOO_VLM), get_config(ZOO_ENCDEC)
+    zoo = {
+        f"{ZOO_VLM} self": (EFM_BATCH, vlm.n_heads, vlm.n_kv_heads,
+                            EFM_PROMPT, vlm.head_dim_, True),
+        f"{ZOO_ENCDEC} encoder": (EFM_BATCH, ed.n_heads, ed.n_kv_heads,
+                                  encdec.src_len(ed, EFM_PROMPT),
+                                  ed.head_dim_, False),
+        f"{ZOO_ENCDEC} decoder": (EFM_BATCH, ed.n_heads, ed.n_kv_heads,
+                                  EFM_PROMPT, ed.head_dim_, True),
+    }
     cases = [
         ("main", main),
         ("Zamba2", ZAMBA_ATTN),
+        *zoo.items(),
         ("S=1", (2, 8, 2, 1, 64, True)),
         ("S=100", (2, 8, 2, 100, 64, True)),
         ("S=2048", (1, 16, 2, 2048, 64, True)),
@@ -1032,13 +1096,15 @@ def phase_flash(torch, device):
     errs = {}
     for i, (label, (b, hq, hkv, s, d, causal)) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = fa_inputs(torch, device, b, hq, hkv, s, d, dtype, i)
+            q, k, v = fa_inputs(torch, device, b, hq, hkv, s, d, dtype, i,
+                                bshd=label in zoo)
             err, _ = fa_check(torch, label, q, k, v, causal)
             name = str(dtype).split(".")[1]
             if label in ("main", "Zamba2"):
                 errs[label, name] = err
             print(f"[5] flash {label}: q {(b, hq, s, d)} kv heads {hkv} "
-                  f"causal={causal} {name} ({route(dtype, d)}): max|err| "
+                  f"causal={causal} {name} ({route(dtype, d)}"
+                  f"{', strided' if label in zoo else ''}): max|err| "
                   f"{err:.3g} (tol {FA_TOL[name]})")
     # bf16 on the tensor cores in the models' layout, bitwise equal to the
     # contiguous layout.
@@ -1190,11 +1256,11 @@ def efm_run(torch, device, backend, dtype, wrappers):
     import dataclasses
 
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+    from repro_torch.serve.efm import (greedy_decode_loop, jit_prefill,
+                                       pad_for_decode)
 
     cfg = get_config(EFM_ARCH).replace(
         attn_backend=backend, param_dtype=dtype, compute_dtype=dtype,
@@ -1228,7 +1294,7 @@ def efm_run(torch, device, backend, dtype, wrappers):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    cache = {k: F.pad(c, (0, 0, 0, EFM_NEW)) for k, c in cache.items()}
+    cache = pad_for_decode(model, cache, EFM_NEW)
     first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     t0 = time.perf_counter()
     out, cache = greedy_decode_loop(recording, params, cache, first,
@@ -1349,11 +1415,11 @@ def phase_efm_profile(torch, device):
     unprofiled wall time, device launches, and the device time by kernel.
     """
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+    from repro_torch.serve.efm import (greedy_decode_loop, jit_prefill,
+                                       pad_for_decode)
 
     cfg = get_config(EFM_ARCH).replace(attn_backend="pallas")
     model = build_model(cfg, device=device)
@@ -1364,7 +1430,7 @@ def phase_efm_profile(torch, device):
     prefill = jit_prefill(model)
     logits, cache = prefill(params, batch)
     first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    padded = {k: F.pad(c, (0, 0, 0, EFM_NEW)) for k, c in cache.items()}
+    padded = pad_for_decode(model, cache, EFM_NEW)
 
     def run_decode():
         state = {k: c.clone() for k, c in padded.items()}
@@ -1377,15 +1443,18 @@ def phase_efm_profile(torch, device):
     torch.cuda.empty_cache()
 
 
-def profile_steps(torch, label, runs, focus=()):
+def profile_steps(torch, label, runs, focus=(), ranges=()):
     """For each ``(name, fn, per, unit)``: a warm-up, a timed run (host
     clock, no profiler) and a run under ``torch.profiler``; prints wall
     time, device busy time (the sum of the device-side events) and the
     idle share it leaves of the unprofiled wall time, device launches, and
     the device time by kernel, each per ``unit`` (``per`` of them a run),
-    and the share of the kernels whose name holds each string of
-    ``focus``.
+    the share of the kernels whose name holds each string of ``focus``,
+    and the device time of the kernels launched inside each
+    ``torch.profiler.record_function`` range named in ``ranges``.
     """
+    from torch.autograd import DeviceType
+
     for name, fn, per, unit in runs:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -1393,7 +1462,13 @@ def profile_steps(torch, label, runs, focus=()):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us, launches, rows = device_profile(torch, fn)
+        averages = profiled(torch, fn)
+        # A range also shows on the device timeline, as a row of its own
+        # spanning its kernels: not a kernel, so not counted as busy.
+        rows = [e for e in averages if e.device_type == DeviceType.CUDA
+                and e.key not in ranges]
+        busy_us = sum(e.self_device_time_total for e in rows)
+        launches = sum(e.count for e in rows)
         _need(busy_us > 0, f"profile of the {name}: no device time")
         print(f"{label} {name}: wall {wall_us / per:.1f} "
               f"us/{unit}, device busy {busy_us / per:.1f} us/{unit}, idle "
@@ -1409,6 +1484,11 @@ def profile_steps(torch, label, runs, focus=()):
             print(f"{label} {name}: kernels named *{part}*: {us / per:.1f} "
                   f"us/{unit} ({us / busy_us:.1%} of device busy), "
                   f"{sum(e.count for e in mine) / per:.1f} launches/{unit}")
+        for part in ranges:
+            us = sum(e.device_time_total for e in averages if e.key == part
+                     and e.device_type == DeviceType.CPU)
+            print(f"{label} {name}: kernels inside {part!r}: {us / per:.1f} "
+                  f"us/{unit} ({us / busy_us:.1%} of device busy)")
 
 
 # ---------------------------------------------------------------------------
@@ -2058,22 +2138,6 @@ def phase_scan_times(torch, device):
 # ---------------------------------------------------------------------------
 
 
-def pad_serve_state(torch, state, n):
-    """Room for ``n`` decoded tokens: the hybrid's KV caches get ``n``
-    more slots (empty: ``slot_pos = -1``), where the positions after the
-    prompt land while it is shorter than the window; the RWKV6 state is
-    O(1) and unchanged."""
-    import torch.nn.functional as F
-
-    if "slot_pos" not in state:
-        return state
-    out = dict(state)
-    out["k"] = F.pad(state["k"], (0, 0, 0, n))
-    out["v"] = F.pad(state["v"], (0, 0, 0, n))
-    out["slot_pos"] = F.pad(state["slot_pos"], (0, n), value=-1)
-    return out
-
-
 def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
                   n_layers=None, attn_backend="ref"):
     """``arch`` on ``scan_backend`` (and, for the hybrid's shared
@@ -2086,7 +2150,8 @@ def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+    from repro_torch.serve.efm import (greedy_decode_loop, jit_prefill,
+                                       pad_for_decode)
 
     cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype,
                                    cache_dtype=dtype,
@@ -2119,7 +2184,7 @@ def recurrent_run(torch, device, arch, scan_backend, dtype, wrappers,
     t_prefill = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     prefill_state = {k: v.clone() for k, v in state.items()}
-    state = pad_serve_state(torch, state, SSM_NEW)
+    state = pad_for_decode(model, state, SSM_NEW)
     first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     t0 = time.perf_counter()
     out, state = greedy_decode_loop(recording, params, state, first,
@@ -2170,7 +2235,8 @@ def profile_recurrent(torch, device, arch, attn_backend="ref"):
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+    from repro_torch.serve.efm import (greedy_decode_loop, jit_prefill,
+                                       pad_for_decode)
 
     cfg = get_config(arch).replace(attn_backend=attn_backend)
     model = build_model(cfg, device=device, scan_backend="pallas")
@@ -2183,8 +2249,8 @@ def profile_recurrent(torch, device, arch, attn_backend="ref"):
     first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
     def run_decode():
-        fresh = pad_serve_state(torch, {k: v.clone() for k, v in
-                                        state.items()}, SSM_NEW)
+        fresh = pad_for_decode(model, {k: v.clone() for k, v in
+                                       state.items()}, SSM_NEW)
         greedy_decode_loop(model, params, fresh, first, EFM_PROMPT, SSM_NEW)
 
     attn = "" if attn_backend == "ref" else f", attention {attn_backend}"
@@ -2282,6 +2348,493 @@ def phase_recurrent(torch, device, wrappers):
                 launches["flash_attention_pallas/tf32_d160"] = flash
                 profile_recurrent(torch, device, arch, attn_backend="pallas")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the rest of the zoo: MoE/MLA, VLM, encoder-decoder.
+# ---------------------------------------------------------------------------
+
+
+def zoo_tokens(torch, device, vocab):
+    """Phase 7's prompts: EFM_BATCH x EFM_PROMPT seeded token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return torch.as_tensor(rng.integers(0, vocab, (EFM_BATCH, EFM_PROMPT)),
+                           device=device)
+
+
+def zoo_decode_start(torch, model, batch, logits, state):
+    """Where greedy decoding starts: after the prompt from its argmax,
+    with room for ``ZOO_NEW`` tokens (``pad_for_decode``); for the
+    encoder-decoder (its prefill runs the encoder only and returns no
+    logits) at position 0 from the prompt's first token, against a fresh
+    copy of the empty self-cache."""
+    from repro_torch.serve.efm import pad_for_decode
+
+    if logits is None:
+        fresh = {k: v.clone() for k, v in state.items()}
+        return fresh, batch["tokens"][:, :1].to(torch.int32), 0
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    return (pad_for_decode(model, state, ZOO_NEW), first,
+            batch["tokens"].shape[1])
+
+
+def zoo_run(torch, model, params, batch, wrappers, label, card):
+    """A warm-up prefill, then (counts set to 0) a timed prefill and
+    ``ZOO_NEW`` greedy tokens (``zoo_decode_start``).  Returns the
+    results and readings."""
+    import dataclasses
+
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    cfg = model.cfg
+    prefill = jit_prefill(model)
+    steps = []
+
+    def decode_step(p, c, t, pos):
+        logits, c = model.decode_step(p, c, t, pos)
+        steps.append(logits[:, -1].float().clone())
+        return logits, c
+
+    recording = dataclasses.replace(model, decode_step=decode_step)
+    prefill(params, batch)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    b, s = batch["tokens"].shape
+    _need(logits is None if cfg.family == "encdec" else (
+        tuple(logits.shape) == (b, 1, cfg.vocab)
+        and logits.dtype == torch.float32
+        and bool(torch.isfinite(logits).all())),
+        f"{label}: prefill logits")
+    state, first, start = zoo_decode_start(torch, model, batch, logits,
+                                           state)
+    t0 = time.perf_counter()
+    out, state = greedy_decode_loop(recording, params, state, first, start,
+                                    ZOO_NEW)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decode_launches = {k: w.launches - launches[k]
+                       for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_logits = torch.stack(steps)
+    _need(tuple(out.shape) == (b, ZOO_NEW + 1) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab, f"{label}: tokens {out.shape}")
+    _need(bool(torch.isfinite(step_logits).all()),
+          f"{label}: non-finite decode logits")
+    _need(not any(decode_launches.values()),
+          f"{label}: decode launched {decode_launches}")
+    print(f"[18] {label}: prefill {b}x{s} tokens in {t_prefill * 1e3:.2f} "
+          f"ms ({b * s / t_prefill:.0f} tokens/s), decode {ZOO_NEW} steps "
+          f"from position {start} in {t_decode * 1e3:.2f} ms "
+          f"({t_decode / ZOO_NEW * 1e3:.2f} ms/step, "
+          f"{b * ZOO_NEW / t_decode:.1f} tokens/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; launches in prefill "
+          f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    return dict(logits=None if logits is None else logits[:, -1],
+                steps=step_logits, tokens=out, launches=launches,
+                prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3)
+
+
+def hold_zoo(kern, plain, label, dtype):
+    """Phase 7's rules for two runs of one model: in float32 the prefill
+    logits and every decode step's within ``F32_LOGIT_TOL``, in bf16 the
+    prefill logits within ``BF16_LOGIT_TOL``; a differing greedy token
+    traced to a top-2 margin within the tolerance in both runs."""
+    tol = F32_LOGIT_TOL if dtype == "float32" else BF16_LOGIT_TOL
+    errs = {}
+    if kern["logits"] is not None:
+        errs["prefill"] = float((kern["logits"] - plain["logits"]).abs().max())
+    if dtype == "float32":
+        errs["decode"] = float((kern["steps"] - plain["steps"]).abs().max())
+    _need(all(e <= tol for e in errs.values()),
+          f"{label}: max|d logits| {errs} > {tol}")
+    notes = trace_token_flips(kern, plain, label, tol)
+    n_diff = int((kern["tokens"] != plain["tokens"]).sum())
+    held = ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+    print(f"[18] {label}: "
+          + (f"max|d logits| {held} (tol {tol}); " if held else "")
+          + "greedy tokens "
+          + (f"{n_diff} differ" if n_diff else "equal")
+          + "".join(f"; {n}" for n in notes))
+
+
+def profile_zoo(torch, model, params, batch, label, card, focus=(),
+                ranges=()):
+    """A bf16 prefill and its decode steps under ``torch.profiler``, as
+    phase 8 profiles TinyLlama's."""
+    from repro_torch.serve.efm import greedy_decode_loop, jit_prefill
+
+    prefill = jit_prefill(model)
+    logits, state = prefill(params, batch)
+
+    def run_decode():
+        fresh, first, start = zoo_decode_start(torch, model, batch, logits,
+                                               state)
+        greedy_decode_loop(model, params, fresh, first, start, ZOO_NEW)
+
+    profile_steps(torch, f"[18] {label} ({card})", (
+        ("prefill", lambda: prefill(params, batch), 1, "prefill"),
+        ("decode", run_decode, ZOO_NEW, "step")), focus=focus, ranges=ranges)
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_zoo_moe(torch, device, wrappers, card):
+    """(a) DeepSeek-V2-Lite-16B at full width in bf16 on ``"chunked"``
+    and ``"ref"`` MLA, the two backends held on the first MoE layer's
+    prefill input, its readings and profile; float32 at a cut depth,
+    decode against forward."""
+    from torch.profiler import record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, deepseek, mla, moe
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve.efm import pad_for_decode
+
+    cfg = get_config(ZOO_MOE)
+    tokens = zoo_tokens(torch, device, cfg.vocab)
+    batch = {"tokens": tokens}
+    params = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(SEED))
+    models = {b: build_model(cfg.replace(attn_backend=b), device=device)
+              for b in ("chunked", "ref")}
+    runs = {b: zoo_run(torch, m, params, batch, wrappers,
+                       f"{ZOO_MOE} bf16 attn_backend={b!r}", card)
+            for b, m in models.items()}
+    _need(not any(sum(r["launches"].values()) for r in runs.values()),
+          f"{ZOO_MOE}: a kernel launched; MLA and MoE have none")
+    kern = runs["chunked"]
+    # Routing is a discrete decision on margins of ~1e-4 in probability
+    # (64 experts near 1/64 each with random weights), which bf16
+    # rounding crosses: the two attention backends route hundreds of
+    # tokens a layer differently, so end to end their logits are a
+    # reading.  MLA's backends are held on one layer's real input below.
+    print(f"[18] {ZOO_MOE} bf16 chunked vs ref end to end (routed freely; "
+          f"a reading, not held): max|d logits| prefill "
+          f"{float((kern['logits'] - runs['ref']['logits']).abs().max()):.3g}"
+          f", greedy tokens "
+          f"{int((kern['tokens'] != runs['ref']['tokens']).sum())} of "
+          f"{kern['tokens'].numel()} differ")
+
+    # The first MoE layer on the prefill's hidden state: MLA on "chunked"
+    # against "ref", then the router's loads against the capacity.
+    with torch.no_grad():
+        x = L.embed(params["embed"], tokens, cfg.cdt)
+        for i in range(cfg.first_k_dense):
+            x = deepseek._dense_block(cfg, layer_params(
+                params["dense_layers"], i), x)
+        lp = layer_params(params["moe_layers"], 0)
+        h = L.rmsnorm(lp["ln1"], x)
+        attn = {b: mla.mla_full(lp["attn"], h, m.cfg).float()
+                for b, m in models.items()}
+        x = x + attn["chunked"].to(x.dtype)
+        h = L.rmsnorm(lp["ln2"], x).reshape(-1, cfg.d_model)
+        _, eids, _ = moe._route(lp["moe"], h, cfg)
+    scale = float(attn["ref"].abs().max())
+    err = float((attn["chunked"] - attn["ref"]).abs().max())
+    _need(err <= MLA_BF16_TOL * scale, f"{ZOO_MOE} first MoE layer: MLA "
+          f"chunked vs ref {err} > {MLA_BF16_TOL} x max|ref| {scale}")
+    print(f"[18] {ZOO_MOE} bf16 first MoE layer, prefill input "
+          f"{tuple(tokens.shape)}: MLA chunked vs ref max|d| {err:.3g}, "
+          f"{err / scale:.3g} of max|ref| {scale:.3g} (tol {MLA_BF16_TOL})")
+    del attn, x
+
+    # Readings: the cache a token, the capacity and the drops of the first
+    # MoE layer at this prefill, the decode beside its bound.
+    serve = models["chunked"].init_serve(1, 1)
+    per_token = tree_bytes(serve)
+    full_kv = (cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                              + cfg.v_head_dim) * 2 * cfg.n_layers)
+    print(f"[18] {ZOO_MOE}: cache {per_token} bytes a token (MLA, "
+          f"(kv_lora {cfg.kv_lora_rank} + rope {cfg.qk_rope_dim}) x 2 B x "
+          f"{cfg.n_layers} layers), decompressed K/V would take {full_kv} "
+          f"({full_kv / per_token:.2f}x); {card}")
+    c = moe.moe_capacity(cfg, h.shape[0])
+    loads = torch.bincount(eids.flatten(), minlength=cfg.moe_experts)
+    n_assign = eids.numel()
+    dropped = int(torch.clamp(loads - c, min=0).sum())
+    print(f"[18] {ZOO_MOE} prefill, first MoE layer: T {h.shape[0]} tokens x "
+          f"top-{cfg.moe_top_k} = {n_assign} assignments over "
+          f"{cfg.moe_experts} experts, capacity C {c} (cf "
+          f"{cfg.moe_capacity_factor}); loads min {int(loads.min())}, max "
+          f"{int(loads.max())}; {dropped} dropped ({dropped / n_assign:.2%}); "
+          f"{card}")
+    experts = sum(tree_bytes(v) for k, v in params["moe_layers"][
+        "moe"].items() if k.endswith("_w"))
+    every = tree_bytes(params)
+    step_ms = kern["decode_ms"] / ZOO_NEW
+    print(f"[18] {ZOO_MOE} decode bound: every step runs all "
+          f"{cfg.moe_experts} experts on C {moe.moe_capacity(cfg, EFM_BATCH)} "
+          f"slots, reading {experts / 1e9:.2f} GB of expert weights "
+          f"({experts / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) of {every / 1e9:.2f} GB of "
+          f"parameters ({every / HBM_BYTES_PER_S * 1e3:.2f} ms); measured "
+          f"{step_ms:.2f} ms/step ({every / HBM_BYTES_PER_S * 1e3 / step_ms:.1%}"
+          f" of the bound); {card}")
+
+    inner = moe._expert_ffn
+
+    def marked(p, xg, cdt):
+        with record_function("moe_expert_ffn"):
+            return inner(p, xg, cdt)
+
+    moe._expert_ffn = marked
+    try:
+        profile_zoo(torch, models["chunked"], params, batch,
+                    f"{ZOO_MOE} bf16 chunked", card,
+                    ranges=("moe_expert_ffn",))
+    finally:
+        moe._expert_ffn = inner
+    del params, models, serve, h
+    torch.cuda.empty_cache()
+
+    # float32 at a cut depth: absorbed decode against the decompressed
+    # forward, nothing dropped (the smoke config's capacity factor).
+    f32 = cfg.replace(n_layers=cfg.first_k_dense + ZOO_F32_MOE,
+                      param_dtype="float32", compute_dtype="float32",
+                      cache_dtype="float32", moe_capacity_factor=8.0)
+    params = build_model(f32, device=device).init(
+        torch.Generator(device=device).manual_seed(SEED))
+    errs = {}
+    with torch.no_grad():
+        fulls = {}
+        for backend in ("chunked", "ref"):
+            model = build_model(f32.replace(attn_backend=backend),
+                                device=device)
+            fulls[backend] = model.forward(params, batch)
+        full = fulls["chunked"]
+        errs["forward chunked vs ref"] = float(
+            (full - fulls.pop("ref")).abs().max())
+        logits, state = model.prefill(params, {"tokens": tokens[:, :-1]})
+        state = pad_for_decode(model, state, 1)
+        dec, _ = model.decode_step(params, state, tokens[:, -1:],
+                                   EFM_PROMPT - 1)
+    errs["prefill vs forward"] = float(
+        (logits[:, -1] - full[:, -2]).abs().max())
+    errs["decode vs forward"] = float((dec[:, -1] - full[:, -1]).abs().max())
+    _need(all(e <= F32_LOGIT_TOL for e in errs.values()),
+          f"{ZOO_MOE} float32: {errs} > {F32_LOGIT_TOL}")
+    print(f"[18] {ZOO_MOE} float32, {f32.n_layers} layers (1 dense + "
+          f"{ZOO_F32_MOE} MoE, cf 8, float32 cache): max|d logits| "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + f" (tol {F32_LOGIT_TOL})")
+    del params, fulls, full, state
+    torch.cuda.empty_cache()
+
+
+def open_gates(torch, params, gen):
+    """The VLM's tanh gates, 0 at init (which hides the image path),
+    drawn from ``gen``: |gate| in [0.5, 1.5), either sign."""
+    for key in ("gate_attn", "gate_mlp"):
+        g = params["xattn_layers"][key]
+        mag = torch.rand(g.shape, generator=gen, device=g.device) + 0.5
+        sign = torch.randint(0, 2, g.shape, generator=gen,
+                             device=g.device) * 2 - 1
+        params["xattn_layers"][key] = (mag * sign).to(g.dtype)
+
+
+def phase_zoo_vlm(torch, device, wrappers, epic, card):
+    """(b) Llama-3.2-Vision-11B at full width in bf16 on ``"pallas"`` and
+    ``"ref"``; the Figure-1 chain from phase 11's EPIC session; the
+    profile; float32 at a cut depth.  Returns the flash launches of the
+    bf16 and float32 ``"pallas"`` prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.models import build_model, vision
+
+    cfg = get_config(ZOO_VLM)
+    g = vision.n_groups(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = zoo_tokens(torch, device, cfg.vocab)
+    models = {b: build_model(cfg.replace(attn_backend=b), device=device)
+              for b in ("pallas", "ref")}
+    params = models["pallas"].init(gen)
+    open_gates(torch, params, gen)
+    img = torch.randn((EFM_BATCH, cfg.img_seq, cfg.d_model), generator=gen,
+                      device=device)
+    batch = {"tokens": tokens, "img_embed": img}
+    runs = {b: zoo_run(torch, m, params, batch, wrappers,
+                       f"{ZOO_VLM} bf16 attn_backend={b!r}, img_embed "
+                       f"{tuple(img.shape)}", card) for b, m in models.items()}
+    flash = runs["pallas"]["launches"]["flash_attention_pallas"]
+    _need(flash == cfg.n_layers and sum(runs["pallas"]["launches"].values())
+          == flash, f"{ZOO_VLM}: launches {runs['pallas']['launches']}, not "
+          f"{cfg.n_layers} flash")
+    _need(not any(runs["ref"]["launches"].values()),
+          f"{ZOO_VLM}: the ref run launched {runs['ref']['launches']}")
+    hold_zoo(runs["pallas"], runs["ref"],
+             f"{ZOO_VLM} bf16 pallas vs ref", "bfloat16")
+
+    # The Figure-1 chain (examples/serve_stream.py): EPIC's retained
+    # patches as the cross-attention context.
+    comp, state, _ = epic
+    seq_len = comp.cfg.capacity
+    stream = comp.tokens(state, seq_len)
+    _need(tuple(stream.tokens.shape) == (seq_len, packing.TOKEN_FEAT)
+          and bool(torch.isfinite(stream.tokens).all()),
+          f"EPIC tokens {tuple(stream.tokens.shape)}")
+    proj = torch.randn((packing.TOKEN_FEAT, cfg.d_model), generator=gen,
+                       device=device) * FIG1_PROJ_SCALE
+    img_epic = (stream.tokens @ proj).expand(EFM_BATCH, -1, -1).contiguous()
+    fig = zoo_run(torch, models["pallas"], params,
+                  {"tokens": tokens, "img_embed": img_epic}, wrappers,
+                  f"{ZOO_VLM} bf16 pallas on EPIC's tokens, img_embed "
+                  f"{tuple(img_epic.shape)}", card)
+    _need(fig["launches"]["flash_attention_pallas"] == cfg.n_layers,
+          f"Figure-1 chain: launches {fig['launches']}")
+
+    def cross_bytes(n):
+        return g * 2 * EFM_BATCH * cfg.n_kv_heads * n * cfg.head_dim_ * 2
+
+    print(f"[18] Figure-1 chain: EPIC's int8 session (phase 11) gives N "
+          f"{seq_len} tokens ({int(stream.mask.sum())} valid) of "
+          f"{packing.TOKEN_FEAT} features, projected to d_model "
+          f"{cfg.d_model} (seeded x {FIG1_PROJ_SCALE}), against img_seq "
+          f"{cfg.img_seq}: cross-KV cache {cross_bytes(seq_len)} bytes at N, "
+          f"{cross_bytes(cfg.img_seq)} at {cfg.img_seq} "
+          f"({cfg.img_seq / seq_len:.2f}x); prefill {fig['prefill_ms']:.2f} "
+          f"ms at N, {runs['pallas']['prefill_ms']:.2f} ms at "
+          f"{cfg.img_seq}; decode {fig['decode_ms'] / ZOO_NEW:.2f} against "
+          f"{runs['pallas']['decode_ms'] / ZOO_NEW:.2f} ms/step; {card}")
+    profile_zoo(torch, models["pallas"], params, batch, f"{ZOO_VLM} bf16 "
+                "pallas", card, focus=("fa_",))
+    del params, models, img, img_epic, proj
+    torch.cuda.empty_cache()
+
+    # float32 at a cut depth: the flash kernel's 3xTF32 instance against
+    # the masked softmax.
+    f32 = cfg.replace(n_layers=ZOO_F32_GROUPS * cfg.cross_attn_period,
+                      param_dtype="float32", compute_dtype="float32",
+                      cache_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    models = {b: build_model(f32.replace(attn_backend=b), device=device)
+              for b in ("pallas", "ref")}
+    params = models["pallas"].init(gen)
+    open_gates(torch, params, gen)
+    batch = {"tokens": tokens, "img_embed": torch.randn(
+        (EFM_BATCH, cfg.img_seq, cfg.d_model), generator=gen, device=device)}
+    f32_runs = {b: zoo_run(torch, m, params, batch, wrappers,
+                           f"{ZOO_VLM} float32, {f32.n_layers} self layers, "
+                           f"attn_backend={b!r}", card)
+                for b, m in models.items()}
+    f32_flash = f32_runs["pallas"]["launches"]["flash_attention_pallas"]
+    _need(f32_flash == f32.n_layers, f"{ZOO_VLM} float32: {f32_flash} flash "
+          f"launches, not {f32.n_layers}")
+    hold_zoo(f32_runs["pallas"], f32_runs["ref"],
+             f"{ZOO_VLM} float32 pallas vs ref", "float32")
+    del params, models, batch
+    torch.cuda.empty_cache()
+    return flash, f32_flash
+
+
+def encdec_forward(torch, model, params, batch, wrappers, label, card):
+    """A warm-up forward, then (counts set to 0) a timed one; returns the
+    logits and the flash launches."""
+    with torch.no_grad():
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        logits = model.forward(params, batch)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    b, s = batch["tokens"].shape
+    _need(tuple(logits.shape) == (b, s, model.cfg.vocab)
+          and bool(torch.isfinite(logits).all()), f"{label}: forward logits")
+    print(f"[18] {label}: forward (encoder {tuple(batch['src_embed'].shape)}"
+          f", decoder {b}x{s}) in {secs * 1e3:.2f} ms; launches {launches}; "
+          f"{card}")
+    return logits, launches.get("flash_attention_pallas", 0)
+
+
+def phase_zoo_encdec(torch, device, wrappers, card):
+    """(c) SeamlessM4T-large-v2 at full width in bf16: forward, prefill
+    (the encoder and the cross cache) and greedy decode from position 0 on
+    ``"pallas"`` and ``"ref"``, the profile; float32 at a cut depth.
+    Returns the flash launches of the bf16 and float32 ``"pallas"``
+    forwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec
+
+    cfg = get_config(ZOO_ENCDEC)
+    launches = []
+    for dtype, cut in (("bfloat16", None), ("float32", ZOO_F32_ENCDEC)):
+        run_cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype,
+                              cache_dtype=dtype)
+        if cut:
+            run_cfg = run_cfg.replace(n_layers=2 * cut, enc_layers=cut,
+                                      dec_layers=cut)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        models = {b: build_model(run_cfg.replace(attn_backend=b),
+                                 device=device) for b in ("pallas", "ref")}
+        params = models["pallas"].init(gen)
+        src = torch.randn((EFM_BATCH, encdec.src_len(cfg, EFM_PROMPT),
+                           cfg.d_model), generator=gen, device=device)
+        batch = {"tokens": zoo_tokens(torch, device, cfg.vocab),
+                 "src_embed": src}
+        what = f"{ZOO_ENCDEC} {dtype}" + (f", {cut} + {cut} layers"
+                                          if cut else "")
+        fwd, flash = {}, {}
+        for b, m in models.items():
+            fwd[b], flash[b] = encdec_forward(
+                torch, m, params, batch, wrappers,
+                f"{what} attn_backend={b!r}", card)
+        n_layers = run_cfg.enc_layers + run_cfg.dec_layers
+        _need(flash["pallas"] == n_layers and flash["ref"] == 0,
+              f"{what}: flash launches {flash}, not {n_layers} and 0")
+        tol = F32_LOGIT_TOL if cut else BF16_LOGIT_TOL
+        err_all = float((fwd["pallas"] - fwd["ref"]).abs().max())
+        err_last = float((fwd["pallas"][:, -1] - fwd["ref"][:, -1]).abs().max())
+        held = err_all if cut else err_last
+        _need(held <= tol, f"{what}: forward logits differ by {held} > {tol}")
+        print(f"[18] {what} forward pallas vs ref: max|d logits| at the last "
+              f"position {err_last:.3g}, at all {EFM_BATCH}x{EFM_PROMPT} "
+              f"{err_all:.3g} (tol {tol} on the "
+              f"{'all' if cut else 'last'})")
+        del fwd
+        runs = {b: zoo_run(torch, m, params, batch, wrappers,
+                           f"{what} attn_backend={b!r}", card)
+                for b, m in models.items()}
+        _need(runs["pallas"]["launches"]["flash_attention_pallas"]
+              == run_cfg.enc_layers, f"{what}: prefill launched "
+              f"{runs['pallas']['launches']}, not {run_cfg.enc_layers} "
+              f"(the encoder's, non-causal)")
+        hold_zoo(runs["pallas"], runs["ref"],
+                 f"{what} pallas vs ref", dtype)
+        if not cut:
+            profile_zoo(torch, models["pallas"], params, batch,
+                        f"{what} pallas", card, focus=("fa_",))
+        launches.append(flash["pallas"])
+        del params, models, src, batch, runs
+        torch.cuda.empty_cache()
+    return tuple(launches)
+
+
+def phase_zoo(torch, device, wrappers, epic, card):
+    """Phase 18; returns the flash launches of its bf16 and float32
+    ``"pallas"`` runs (the VLM's prefills, SeamlessM4T's forwards)."""
+    phase_zoo_moe(torch, device, wrappers, card)
+    vlm = phase_zoo_vlm(torch, device, wrappers, epic, card)
+    ed = phase_zoo_encdec(torch, device, wrappers, card)
+    print(f"[18] flash launches: {ZOO_VLM} prefill {vlm[0]} (float32 cut "
+          f"{vlm[1]}), {ZOO_ENCDEC} forward {ed[0]} (float32 cut {ed[1]})")
+    return {"flash_attention_pallas": vlm[0] + ed[0],
+            "flash_attention_pallas/tf32": vlm[1] + ed[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -3602,6 +4155,9 @@ def main() -> int:
     errs.update(phase_scans(torch, device))
     times.update(phase_scan_times(torch, device))
     launches.update(phase_recurrent(torch, device, kernel_wrappers()))
+    for name, n in phase_zoo(torch, device, kernel_wrappers(), epic,
+                             card).items():
+        launches[name] += n
     serve = phase_serve_process()
     errs.update(serve["errs"])
     times.update(serve["times"])

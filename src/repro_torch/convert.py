@@ -18,9 +18,11 @@ pointwise one to ``(cin, cout)``; the per-channel scales ``(1, 1, 1, c)``
 become ``(c,)``.
 
 The EFM models keep the reference's pytree layout (linear weights
-``(d_in, d_out)``, layer stacks with a leading ``L`` axis), so
-:func:`dense_from_jax`, :func:`rwkv6_from_jax` and :func:`hybrid_from_jax`
-only check the tree and move its leaves.
+``(d_in, d_out)``, layer stacks with a leading ``L`` axis, the VLM's
+self layers with ``(groups, period)``), so :func:`dense_from_jax`,
+:func:`rwkv6_from_jax`, :func:`hybrid_from_jax`, :func:`moe_mla_from_jax`,
+:func:`vlm_from_jax` and :func:`encdec_from_jax` only check the tree and
+move its leaves.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import depth as depth_mod
 from repro_torch.core.depth import DepthNet
 from repro_torch.core.hir import HIRNet
-from repro_torch.models import mamba2, rwkv6, transformer
+from repro_torch.models import (deepseek, encdec, mamba2, rwkv6, transformer,
+                                vision)
 
 
 def hwio_to_oihw(w) -> torch.Tensor:
@@ -154,6 +157,25 @@ def hybrid_from_jax(params_np, cfg: ModelConfig, device=None):
     """The Zamba2 hybrid's parameters (``repro.models.mamba2``) as the
     port's tree, as :func:`dense_from_jax` does for the dense family."""
     return _model_from_jax(mamba2, params_np, cfg, device)
+
+
+def moe_mla_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The DeepSeek model's parameters (``repro.models.deepseek``: MLA,
+    MoE, and the MTP tree when ``cfg.mtp``) as the port's tree, as
+    :func:`dense_from_jax` does for the dense family."""
+    return _model_from_jax(deepseek, params_np, cfg, device)
+
+
+def vlm_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The VLM's parameters (``repro.models.vision``) as the port's tree,
+    as :func:`dense_from_jax` does for the dense family."""
+    return _model_from_jax(vision, params_np, cfg, device)
+
+
+def encdec_from_jax(params_np, cfg: ModelConfig, device=None):
+    """The encoder-decoder's parameters (``repro.models.encdec``) as the
+    port's tree, as :func:`dense_from_jax` does for the dense family."""
+    return _model_from_jax(encdec, params_np, cfg, device)
 
 
 def evu_from_jax(params_np, device=None):

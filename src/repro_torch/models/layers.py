@@ -11,9 +11,9 @@ Port of ``repro/models/layers.py``.  Conventions (as in the reference):
   * Attention layouts: activations (B, S, D_model), per-head (B, H, S, Dh).
   * Linear weights are ``(d_in, d_out)``, the reference's layout.
 
-Left out: cross-attention (``kv_ctx``, for the VLM and enc-dec families),
-the mesh helpers of sharded decode (``ROADMAP.md`` Queue 1 item 6),
-``remat_wrap`` and the loss (training).
+Left out: the mesh helpers of sharded decode (``ambient_mesh_axes``,
+``decode_seq_shard``; ``ROADMAP.md`` Queue 1 item 6), ``remat_wrap`` and
+the loss (training).
 """
 
 from __future__ import annotations
@@ -207,6 +207,7 @@ def attention_full(
     rope_base: float = 10000.0,
     causal: bool = True,
     backend: str = "ref",
+    kv_ctx: Optional[Tensor] = None,  # cross-attention context (B, Sk, D)
     compute_dtype=torch.float32,
     cache_dtype: Optional[torch.dtype] = None,
     window: Optional[int] = None,
@@ -224,46 +225,54 @@ def attention_full(
     it only when ``window is None`` and takes the masked reference path
     otherwise, as the reference routes (``repro/models/layers.py``).
 
+    With ``kv_ctx`` (B, Sk, D) it is cross-attention: keys and values
+    project from the context, nothing is rotated and every query sees
+    every key.  The flash kernel is taken only for self-attention, so
+    cross-attention always runs the masked path on ``"pallas"``, as the
+    reference routes.
+
     With ``cache_dtype`` set it returns ``(out, cache)``: the prefix's KV
     cache, rotated keys and values cast to ``cache_dtype``, which the
     reference's ``attention_prefill_cache`` computes a second time.
     """
     b, s, _ = x.shape
+    src = x if kv_ctx is None else kv_ctx
     q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)
-    k = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads)
-    v = _split_heads(linear(p["wv"], x, compute_dtype), n_kv_heads)
+    k = _split_heads(linear(p["wk"], src, compute_dtype), n_kv_heads)
+    v = _split_heads(linear(p["wv"], src, compute_dtype), n_kv_heads)
     head_dim = q.shape[-1]
 
-    if rope_base > 0:
+    if kv_ctx is None and rope_base > 0:
         cos, sin = rope_cos_sin(torch.arange(s, device=x.device), head_dim,
                                 rope_base)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     group = n_heads // n_kv_heads
-    if backend == "pallas" and window is None:
+    if backend == "pallas" and kv_ctx is None and window is None:
         # The kernels read these (B, S, H, D)-backed views through their
         # strides and return a (B, S, Hq, D)-backed view, which
         # _merge_heads reshapes without a copy.
         o = flash_attention_pallas(q, k, v, causal=causal)
     elif backend == "chunked":
         o = attention_chunked(
-            q, _repeat_kv(k, group), _repeat_kv(v, group), causal=causal,
-            window=window,
+            q, _repeat_kv(k, group), _repeat_kv(v, group),
+            causal=causal and kv_ctx is None, window=window,
         )
     else:
         kr = _repeat_kv(k, group)
         vr = _repeat_kv(v, group)
         logits = torch.matmul(q, kr.transpose(-1, -2)).float()
         logits = logits / math.sqrt(head_dim)
-        qpos = torch.arange(s, device=x.device)[:, None]
-        kpos = torch.arange(s, device=x.device)[None, :]
-        keep = torch.ones((s, s), dtype=torch.bool, device=x.device)
-        if causal:
-            keep = kpos <= qpos
-        if window is not None:
-            keep = keep & (kpos > qpos - window)
-        logits = logits.masked_fill(~keep, _NEG_INF)
+        if kv_ctx is None and (causal or window is not None):
+            qpos = torch.arange(s, device=x.device)[:, None]
+            kpos = torch.arange(s, device=x.device)[None, :]
+            keep = torch.ones((s, s), dtype=torch.bool, device=x.device)
+            if causal:
+                keep = kpos <= qpos
+            if window is not None:
+                keep = keep & (kpos > qpos - window)
+            logits = logits.masked_fill(~keep, _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(compute_dtype)
         o = torch.matmul(probs, vr)
     out = linear(p["wo"], _merge_heads(o), compute_dtype)
@@ -327,6 +336,34 @@ def attention_decode(
     o = torch.matmul(probs, vr)
     out = linear(p["wo"], _merge_heads(o), compute_dtype)
     return out, cache
+
+
+def cross_kv(p: Params, ctx: Tensor, n_kv_heads: int, *,
+             compute_dtype=torch.float32,
+             cache_dtype=torch.bfloat16) -> Tuple[Tensor, Tensor]:
+    """A context's cross-attention K/V, (B, Hkv, Sk, Dh) each in
+    ``cache_dtype``: projected once at prefill, read by
+    :func:`cross_attention_decode` at every step."""
+    k = _split_heads(linear(p["wk"], ctx, compute_dtype), n_kv_heads)
+    v = _split_heads(linear(p["wv"], ctx, compute_dtype), n_kv_heads)
+    return k.to(cache_dtype), v.to(cache_dtype)
+
+
+def cross_attention_decode(p: Params, x: Tensor, xk: Tensor, xv: Tensor,
+                           n_heads: int, *,
+                           compute_dtype=torch.float32) -> Tensor:
+    """One token's cross-attention (B, 1, D) against precomputed context
+    K/V (B, Hkv, Sk, Dh): no RoPE, every key seen.  Returns (B, 1, D)."""
+    b = x.shape[0]
+    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)
+    group = n_heads // xk.shape[1]
+    kr = _repeat_kv(xk.to(compute_dtype), group)
+    vr = _repeat_kv(xv.to(compute_dtype), group)
+    logits = torch.matmul(q, kr.transpose(-1, -2)).float()
+    logits = logits / math.sqrt(q.shape[-1])
+    probs = torch.softmax(logits, dim=-1).to(compute_dtype)
+    o = torch.matmul(probs, vr).transpose(1, 2).reshape(b, 1, -1)
+    return linear(p["wo"], o, compute_dtype)
 
 
 def attention_chunked(

@@ -1,8 +1,7 @@
 """Unified model API: ``build_model(cfg)`` dispatches on ``cfg.family``.
 
-Port of ``repro/models/model.py`` for the dense, rwkv6 and hybrid
-families.  Every family exposes the same surface, so the server never
-branches on architecture:
+Port of ``repro/models/model.py`` for all six families.  Every family
+exposes the same surface, so the server never branches on architecture:
 
   * ``init(generator)                -> params``  (drawn on ``device``)
   * ``forward(params, batch)         -> logits``
@@ -10,11 +9,18 @@ branches on architecture:
   * ``init_serve(batch, max_seq)     -> serve_state``  (zeros)
   * ``decode_step(params, state, token, pos) -> (logits, state)``
 
-The batch of these families is ``{"tokens": (B, S) int}``.  The model
-lives on one device, fixed when it is built: the CUDA card unless the
-caller passes ``device="cpu"``.  ``scan_backend`` picks the scan of the
-rwkv6 and hybrid prefills: the reference's ``"chunked"`` by default,
-``"pallas"`` for the CUDA kernels (the dense family has no scan).  The
+Batch layouts by family, as the reference's:
+  dense / moe_mla / rwkv6 / hybrid : {"tokens": (B, S) int}
+  vlm                              : + {"img_embed": (B, N, D) float}
+  encdec                           : + {"src_embed": (B, S_src, D) float}
+
+The model lives on one device, fixed when it is built: the CUDA card
+unless the caller passes ``device="cpu"``.  ``scan_backend`` picks the
+scan of the rwkv6 and hybrid prefills: the reference's ``"chunked"`` by
+default, ``"pallas"`` for the CUDA kernels (the other families have no
+scan).  The encoder-decoder's ``prefill`` runs the encoder only and
+returns ``(None, cache)``: the cross K/V and an empty self-cache of the
+prompt's length, from which decode starts at position 0.  The
 reference's ``loss_fn`` (training) and its shape specs (sharded lowering)
 are not ported yet.
 """
@@ -32,9 +38,7 @@ from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Any]
 SCAN_BACKENDS = ("chunked", "ref", "pallas")
-
-# Families of the JAX package that the port does not run yet.
-_NOT_PORTED = ("moe_mla", "vlm", "encdec")
+FAMILIES = ("dense", "moe_mla", "rwkv6", "hybrid", "vlm", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +56,7 @@ def build_model(cfg: ModelConfig, device=None, *,
                 scan_backend: str = "chunked") -> Model:
     """The model of ``cfg`` on ``device`` (default: the CUDA card)."""
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP.md, Queue 1 item 5)"
-        )
-    if fam not in ("dense", "rwkv6", "hybrid"):
+    if fam not in FAMILIES:
         raise ValueError(f"unknown family: {fam}")
     if scan_backend not in SCAN_BACKENDS:
         raise ValueError(f"unknown scan backend {scan_backend!r}; known: "
@@ -87,15 +87,61 @@ def build_model(cfg: ModelConfig, device=None, *,
             init_serve=lambda bs, s: M.init_state(cfg, bs, device),
             decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
         )
-    from repro_torch.models import mamba2 as M
+    if fam == "hybrid":
+        from repro_torch.models import mamba2 as M
+
+        return Model(
+            cfg=cfg,
+            device=device,
+            init=lambda gen: M.init(gen, cfg, device),
+            forward=lambda p, b: M.forward(p, b["tokens"], cfg),
+            prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
+                                           scan_backend=scan_backend),
+            init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
+            decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        )
+    if fam == "moe_mla":
+        from repro_torch.models import deepseek as M
+
+        return Model(
+            cfg=cfg,
+            device=device,
+            init=lambda gen: M.init(gen, cfg, device),
+            forward=lambda p, b: M.forward(p, b["tokens"], cfg)[0],
+            prefill=lambda p, b: M.prefill(p, b["tokens"], cfg),
+            init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
+            decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        )
+    if fam == "vlm":
+        from repro_torch.models import vision as M
+
+        return Model(
+            cfg=cfg,
+            device=device,
+            init=lambda gen: M.init(gen, cfg, device),
+            forward=lambda p, b: M.forward(p, b["tokens"], b["img_embed"],
+                                           cfg),
+            prefill=lambda p, b: M.prefill(p, b["tokens"], b["img_embed"],
+                                           cfg),
+            init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
+            decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        )
+    from repro_torch.models import encdec as M
+
+    def ed_prefill(p, b):
+        xk, xv = M.precompute_cross_cache(p, b["src_embed"], cfg)
+        bs, s = b["tokens"].shape
+        cache = M.init_cache(cfg, bs, s, xk.shape[3], device)
+        cache["xk"], cache["xv"] = xk, xv
+        return None, cache
 
     return Model(
         cfg=cfg,
         device=device,
         init=lambda gen: M.init(gen, cfg, device),
-        forward=lambda p, b: M.forward(p, b["tokens"], cfg),
-        prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
-                                       scan_backend=scan_backend),
-        init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
+        forward=lambda p, b: M.forward(p, b["src_embed"], b["tokens"], cfg),
+        prefill=ed_prefill,
+        init_serve=lambda bs, s: M.init_cache(cfg, bs, s, M.src_len(cfg, s),
+                                              device),
         decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
     )

@@ -3,8 +3,13 @@
 Port of ``repro/serve/efm.py``.  The reference compiles each step with
 ``jax.jit`` over a device mesh and returns it with its sharding specs;
 PyTorch runs eagerly, so here each step is a plain callable on the
-model's device, without gradients.  Sharding over a mesh is not ported
-yet (``ROADMAP.md``, Queue 1 item 6): passing a mesh raises.
+model's device, without gradients.  The steps take any family's batch
+(``models/model.py``: tokens, plus ``img_embed`` for the VLM and
+``src_embed`` for the encoder-decoder, whose prefill returns no logits
+and whose decode starts at position 0); ``pad_for_decode`` gives a
+prefill's state room for the decoded tokens, the caller's job in the
+reference (``examples/serve_stream.py``).  Sharding over a mesh is not
+ported yet (``ROADMAP.md``, Queue 1 item 6): passing a mesh raises.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from repro_torch.models.model import Model
@@ -47,6 +53,30 @@ def jit_decode_step(model: Model, mesh=None) -> Callable:
         return model.decode_step(params, state, token, pos)
 
     return decode
+
+
+def pad_for_decode(model: Model, state, n: int):
+    """``model``'s prefill ``state`` with room for ``n`` decoded tokens
+    after the prompt, as ``examples/serve_stream.py`` pads: the
+    self-attention caches get ``n`` more positions (the dense and VLM
+    K/V, DeepSeek's compressed caches; the hybrid's window gets ``n``
+    empty slots, ``slot_pos = -1``).  The cross K/V, RWKV6's O(1) state
+    and the encoder-decoder's self-cache (its decode starts at position
+    0) stay as they are.  Returns a new dict that shares the tensors it
+    does not pad with ``state``; ``state`` is unchanged."""
+    def pad(t):
+        return F.pad(t, (0, 0, 0, n))
+
+    fam = model.cfg.family
+    if fam == "moe_mla":
+        return {name: {k: pad(v) for k, v in stack.items()}
+                for name, stack in state.items()}
+    out = dict(state)
+    if fam in ("dense", "vlm", "hybrid"):
+        out["k"], out["v"] = pad(state["k"]), pad(state["v"])
+    if fam == "hybrid":
+        out["slot_pos"] = F.pad(state["slot_pos"], (0, n), value=-1)
+    return out
 
 
 @torch.no_grad()

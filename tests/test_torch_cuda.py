@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: reproject-match, flash attention, int8
 matmul and the fused int8 convolution, and the RWKV6 and Mamba-2 SSD scans;
 the serving pool, directly and through the wire codec; the checkpoint
-store on card tensors; the EVU probe against the CPU (marked ``cuda``;
-skipped without a card).  Imports no JAX, so it runs where JAX is not installed:
+store on card tensors; the EVU probe and the MoE/MLA, VLM and
+encoder-decoder models against the CPU (marked ``cuda``; skipped without
+a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -952,3 +953,80 @@ def test_evu_on_the_card_matches_the_cpu(device):
         for x, y in zip(got, want):
             for a, b in zip(evu.leaves(x), evu.leaves(y)):
                 torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The MoE/MLA, VLM and encoder-decoder answer paths: the card against the
+# CPU on the same weights.
+# ---------------------------------------------------------------------------
+
+ZOO_ARCHS = ("deepseek-v2-lite-16b", "deepseek-v3-671b",
+             "llama-3.2-vision-11b", "seamless-m4t-large-v2")
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("backend", ["pallas", "ref"])
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_zoo_on_the_card_matches_the_cpu(device, arch, backend):
+    """The smoke config in float32 with a float32 cache, the same weights
+    (the VLM's gates drawn nonzero) on the card and on the CPU: forward
+    and prefill logits within 1e-4, 4 greedy tokens equal (from position
+    0 for the encoder-decoder, whose prefill runs the encoder only).  On
+    ``"pallas"`` the VLM's and SeamlessM4T's self-attention launch the
+    flash kernel on the card (its plain version on the CPU); DeepSeek's
+    MLA has no kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+    from repro_torch.models import build_model
+    from repro_torch.serve.efm import greedy_decode_loop, pad_for_decode
+
+    cfg = get_smoke_config(arch).replace(cache_dtype="float32",
+                                         attn_backend=backend)
+    models = {"cpu": build_model(cfg, device="cpu"),
+              "cuda": build_model(cfg, device=device)}
+    params = models["cpu"].init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    if cfg.family == "vlm":
+        for key in ("gate_attn", "gate_mlp"):
+            g = params["xattn_layers"][key]
+            params["xattn_layers"][key] = torch.rand(g.shape,
+                                                     generator=gen) + 0.5
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=gen)}
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.randn(2, 12, cfg.d_model, generator=gen)
+    if cfg.family == "encdec":
+        batch["src_embed"] = torch.randn(2, 64, cfg.d_model, generator=gen)
+    out = {}
+    for where, model in models.items():
+        p = _tree_to(params, model.device)
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        before = flash_attention_pallas.launches
+        full = model.forward(p, b)
+        logits, state = model.prefill(p, b)
+        if logits is None:
+            first, start = b["tokens"][:, :1].to(torch.int32), 0
+        else:
+            first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            start = b["tokens"].shape[1]
+            state = pad_for_decode(model, state, 4)
+        tokens, _ = greedy_decode_loop(model, p, state, first, start, 4)
+        out[where] = (full.cpu(), None if logits is None else logits.cpu(),
+                      tokens.cpu(), flash_attention_pallas.launches - before)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=0)
+    if out["cpu"][1] is not None:
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-4,
+                                   rtol=0)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    # forward + prefill: every self layer twice; the encoder-decoder's
+    # prefill runs its encoder only.
+    launches = {"vlm": 2 * cfg.n_layers,
+                "encdec": 2 * cfg.enc_layers + cfg.dec_layers}
+    assert out["cuda"][3] == (launches.get(cfg.family, 0)
+                              if backend == "pallas" else 0)
+    assert out["cpu"][3] == 0

@@ -34,8 +34,8 @@ from repro_torch.models import layers as TL
 from repro_torch.serve import efm as tefm
 
 B, PROMPT, NEW = 2, 24, 8
-# The dense architectures (test_torch_rwkv6.py and test_torch_hybrid.py
-# hold the other families the port runs).
+# The dense architectures (test_torch_{moe_mla,rwkv6,hybrid,vlm,encdec}.py
+# hold the other families).
 DENSE_IDS = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
 F32_TOL = 1e-5
 BF16_CACHE_TOL = 2e-2
@@ -171,16 +171,58 @@ def test_full_configs_match_the_reference():
         assert str(t.pdt) == "torch." + str(jnp.dtype(j.pdt))
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("deepseek-v2-lite-16b", "moe_mla"), ("llama-3.2-vision-11b", "vlm"),
-    ("seamless-m4t-large-v2", "encdec"),
-])
-def test_unported_families_raise_naming_the_roadmap(arch, family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        get_config(arch)
-    cfg = get_smoke_config("olmo-1b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build_model(cfg, device="cpu")
+def test_arch_ids_are_the_references():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert ARCH_IDS == JAX_ARCH_IDS
+
+
+def _reference_arch_ids():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    return JAX_ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", _reference_arch_ids())
+def test_every_reference_config_is_the_ports(arch):
+    """``CONFIG``, ``SMOKE_CONFIG`` and ``SHAPES`` equal the reference's
+    field for field."""
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import get_shapes as jax_get_shapes
+    from repro_torch.configs import get_shapes
+
+    assert jax_get_config(arch).__dict__ == get_config(arch).__dict__
+    assert jax_smoke_config(arch).__dict__ == get_smoke_config(arch).__dict__
+    assert [s.__dict__ for s in jax_get_shapes(arch)] == [
+        s.__dict__ for s in get_shapes(arch)]
+
+
+@pytest.mark.parametrize("arch", _reference_arch_ids())
+def test_every_reference_arch_builds_on_the_cpu(arch):
+    """``build_model`` of the smoke config on the CPU: the parameter tree
+    has the reference's paths, shapes and dtype, and a forward gives
+    finite (B, S, V) logits."""
+    cfg = get_smoke_config(arch)
+    spec = jax.eval_shape(jax_build_model(jax_smoke_config(arch)).init,
+                          jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    j_leaves = jax.tree_util.tree_leaves_with_path(spec)
+    t_leaves = jax.tree_util.tree_leaves_with_path(params)
+    assert [jax.tree_util.keystr(p) for p, _ in j_leaves] == [
+        jax.tree_util.keystr(p) for p, _ in t_leaves]
+    for (path, j), (_, t) in zip(j_leaves, t_leaves):
+        assert tuple(j.shape) == tuple(t.shape), jax.tree_util.keystr(path)
+        assert str(t.dtype) == "torch." + str(j.dtype), path
+    rng = np.random.default_rng(0)
+    batch = {"tokens": to_torch(rng.integers(0, cfg.vocab, (B, 16)))}
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.randn(B, 10, cfg.d_model)
+    if cfg.family == "encdec":
+        batch["src_embed"] = torch.randn(B, 16, cfg.d_model)
+    logits = model.forward(params, batch)
+    assert logits.shape == (B, 16, cfg.vocab) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_entry_points_need_a_device_without_cuda():
@@ -198,6 +240,48 @@ def test_a_mesh_raises():
     for fn in (tefm.jit_prefill, tefm.jit_decode_step):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             fn(tm, mesh=object())
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_pad_for_decode_makes_room_after_the_prompt(arch):
+    """``pad_for_decode`` on each family's prefill state leaves the state
+    as it was and grows only its self-attention caches; one decode step
+    into the room it made gives the forward's logits at that position
+    (position 0 for the encoder-decoder, whose self-cache it keeps)."""
+    cfg = get_smoke_config(arch).replace(cache_dtype="float32")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, 16), generator=gen)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["img_embed"] = torch.randn(B, 10, cfg.d_model, generator=gen)
+    if cfg.family == "encdec":
+        batch["src_embed"] = torch.randn(B, 16, cfg.d_model, generator=gen)
+    full = model.forward(params, batch)
+    logits, state = model.prefill(params, dict(batch, tokens=tokens[:, :-1]))
+    flat = dict(jax.tree_util.tree_leaves_with_path(state))
+    before = {k: v.clone() for k, v in flat.items()}
+    padded = dict(jax.tree_util.tree_leaves_with_path(
+        tefm.pad_for_decode(model, state, 1)))
+    assert padded.keys() == flat.keys()
+    grown = {jax.tree_util.keystr(k) for k, v in padded.items()
+             if v.shape != flat[k].shape}
+    assert grown == {
+        "dense": {"['k']", "['v']"}, "vlm": {"['k']", "['v']"},
+        "hybrid": {"['k']", "['v']", "['slot_pos']"},
+        "moe_mla": {f"['{n}']['{k}']" for n in state
+                    for k in ("c_kv", "k_rope")},
+    }.get(cfg.family, set())
+    for k, v in padded.items():
+        assert torch.equal(flat[k], before[k])
+        assert torch.equal(v[tuple(slice(0, n) for n in flat[k].shape)],
+                           flat[k])
+    pos = 0 if logits is None else tokens.shape[1] - 1
+    ld, _ = model.decode_step(params, tefm.pad_for_decode(model, state, 1),
+                              tokens[:, pos:pos + 1], pos)
+    np.testing.assert_allclose(to_numpy(ld[:, -1]), to_numpy(full[:, pos]),
+                               atol=F32_TOL)
 
 
 @pytest.mark.parametrize("pos", [PROMPT, -1, PROMPT + 5])

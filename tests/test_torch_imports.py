@@ -63,6 +63,36 @@ def test_the_scan_paths_import_without_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_the_zoo_paths_import_without_jax():
+    """The MoE/MLA, VLM and encoder-decoder families: their modules, their
+    configs and a smoke forward of each, with JAX blocked."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import torch\n"
+            "import repro_torch.models.mla, repro_torch.models.moe\n"
+            "import repro_torch.models.deepseek, repro_torch.models.vision\n"
+            "import repro_torch.models.encdec\n"
+            "from repro_torch.configs import get_smoke_config\n"
+            "from repro_torch.models import build_model\n"
+            "for arch in ('deepseek-v2-lite-16b', 'deepseek-v3-671b',\n"
+            "             'llama-3.2-vision-11b', 'seamless-m4t-large-v2'):\n"
+            "    cfg = get_smoke_config(arch)\n"
+            "    m = build_model(cfg, device='cpu')\n"
+            "    p = m.init(torch.Generator().manual_seed(0))\n"
+            "    b = {'tokens': torch.zeros(1, 8, dtype=torch.int32),\n"
+            "         'img_embed': torch.zeros(1, 4, cfg.d_model),\n"
+            "         'src_embed': torch.zeros(1, 16, cfg.d_model)}\n"
+            "    assert m.forward(p, b).shape == (1, 8, cfg.vocab)\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
