@@ -217,6 +217,35 @@ and prints no result line):
    ``"ref"``, the last position's logits within 0.5; prefill (the encoder
    and the cross cache: 24 launches) and 8 greedy tokens from position 0;
    profiled; float32 at 2 + 2 layers within 1e-3.
+19. Training, in a process of its own (``chip_smoke.py --train``, started
+   after phase 18, so its memory readings are its own).  (a)
+   TinyLlama-1.1B at full width in bf16 with ``remat=True``, ``"dots"``:
+   ``make_train_step`` with ``AdamWConfig()`` and no warmup takes 8 steps
+   on one seeded 4 x 1024 batch: the loss finite at every step and lower
+   at the end, the parameters moved; one step each with remat off,
+   ``"dots"`` and ``"full"`` from the same state: the losses equal, the
+   gradient norms within 1%.  Readings beside the card's name and power
+   limit: the step time (median after 2 warm steps), tokens/s, peak
+   memory of each run, the gradient norm.  (b) float32 at 2 layers and
+   full width, batch 2 x 256: loss, gradients and one AdamW step on the
+   card held to the same step of the port on the CPU (``TRAIN_TOL``; the
+   parameters by the CPU tests' rule, which exempts the elements whose
+   gradient is a rounding residue), ``accum=2`` held to ``accum=1``.
+   (c) RWKV6, the hybrid, DeepSeek-V3 (MTP on), the VLM (gates drawn
+   nonzero) and the encoder-decoder at their smoke configurations in
+   float32: one train step on the card held to the CPU.  No kernel
+   launches in (a)-(c): training runs the reference's ``"ref"`` and
+   ``"chunked"`` forms.  (d) Every kernel wrapper refuses an input that
+   requires grad on the card: ``flash_attention_pallas`` with
+   ``q.requires_grad``, (b)'s loss on ``attn_backend="pallas"``, the
+   RWKV6 and hybrid prefills on ``scan_backend="pallas"`` under grad, the
+   int8 convolution and reproject-match: each raises before a launch.
+   (e) With cuDNN's switches at PyTorch's defaults (TF32 allowed, set
+   inside the phase and restored after), the fp32 depth stage
+   (``predict_fullres``) and HIR on the card within 1e-5 of the CPU and
+   the gradient of ``depth.loss_fn`` within ``TRAIN_TOL``; beside them,
+   as a reading, the same depth stage with ``conv2d_same``'s scope
+   lifted.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
@@ -240,6 +269,7 @@ the card's name and power limit, and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -389,6 +419,20 @@ ZOO_ENCDEC = "seamless-m4t-large-v2"
 ZOO_NEW = 8
 ZOO_F32_MOE, ZOO_F32_GROUPS, ZOO_F32_ENCDEC = 2, 2, 2
 FIG1_PROJ_SCALE = 0.05
+# Phase 19: training.  TinyLlama-1.1B at full width in bf16 (4 x 1024
+# tokens, 8 AdamW steps, 2 of them warm-up for the step time); float32 at
+# TRAIN_F32_LAYERS layers and full width on 2 x 256 tokens; the other
+# families at their smoke configurations on 2 x 16 tokens.  TRAIN_TOL:
+# card against CPU in float32 (TF32 off), the loss relative to itself and
+# each gradient (or first moment) leaf relative to its largest reference
+# value; parameters after a step within what a gradient that close can
+# move them (``step_err``).
+TRAIN_STEPS, TRAIN_WARM, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4, 1024
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 2, 256
+TRAIN_SMOKE = ("rwkv6-3b", "zamba2-2.7b", "deepseek-v3-671b",
+               "llama-3.2-vision-11b", "seamless-m4t-large-v2")
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 16
+TRAIN_TOL = 1e-4
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -1451,10 +1495,12 @@ def profile_steps(torch, label, runs, focus=(), ranges=()):
     the device time by kernel, each per ``unit`` (``per`` of them a run),
     the share of the kernels whose name holds each string of ``focus``,
     and the device time of the kernels launched inside each
-    ``torch.profiler.record_function`` range named in ``ranges``.
+    ``torch.profiler.record_function`` range named in ``ranges``.  Returns
+    the last run's device busy time and its ranges' device times, in us.
     """
     from torch.autograd import DeviceType
 
+    out = {}
     for name, fn, per, unit in runs:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -1484,11 +1530,14 @@ def profile_steps(torch, label, runs, focus=(), ranges=()):
             print(f"{label} {name}: kernels named *{part}*: {us / per:.1f} "
                   f"us/{unit} ({us / busy_us:.1%} of device busy), "
                   f"{sum(e.count for e in mine) / per:.1f} launches/{unit}")
+        out = {"busy_us": busy_us}
         for part in ranges:
             us = sum(e.device_time_total for e in averages if e.key == part
                      and e.device_type == DeviceType.CPU)
+            out[part] = us
             print(f"{label} {name}: kernels inside {part!r}: {us / per:.1f} "
                   f"us/{unit} ({us / busy_us:.1%} of device busy)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3292,6 +3341,459 @@ def phase_serve(torch, device, card):
 # ---------------------------------------------------------------------------
 # Phase 17: the wire in front of the StreamServer, crash and restore, EVU.
 # ---------------------------------------------------------------------------
+# Phase 19: training.
+# ---------------------------------------------------------------------------
+
+
+def train_batch(torch, cfg, b, s, seed, device):
+    """A family's batch (tokens, and the VLM's or encoder-decoder's
+    embeddings) drawn with numpy from ``seed``, on ``device``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s))}
+    if cfg.family == "vlm":
+        batch["img_embed"] = 0.1 * rng.standard_normal(
+            (b, cfg.img_seq, cfg.d_model), dtype=np.float32)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+
+        batch["src_embed"] = 0.1 * rng.standard_normal(
+            (b, encdec.src_len(cfg, s), cfg.d_model), dtype=np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def tree_to(torch, tree, device):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda x: x.to(device), tree)
+
+
+def move_constant_leaves(torch, params, gen):
+    """Every leaf an ``init`` fills with one value (norm scales, zero
+    biases, the VLM's gates) moved by seeded noise of 0.1, so the step
+    exercises the terms they would switch off."""
+    from torch.utils import _pytree as pytree
+
+    def move(x):
+        if x.numel() > 1 and bool((x == x.flatten()[0]).all()):
+            noise = torch.randn(x.shape, generator=gen, device=x.device)
+            return (x.float() + 0.1 * noise).to(x.dtype)
+        return x
+
+    return pytree.tree_map(move, params)
+
+
+def tree_err(torch, ref, got):
+    """The largest difference of two trees' leaves, each relative to its
+    reference leaf's largest |value|."""
+    from torch.utils import _pytree as pytree
+
+    worst = 0.0
+    for a, b in zip(pytree.tree_leaves(ref), pytree.tree_leaves(got)):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = max(float(a.abs().max()), 1e-30)
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def step_err(torch, ref_params, ref_mu, got_params, lr, beta1=0.9):
+    """Parameters after one AdamW step from zero moments against a
+    reference step, as the largest difference over what is allowed (pass:
+    <= 1).  That step moves an element by lr g / (|g| + eps), g the
+    clipped gradient (the reference's first moment over 1 - beta1), so a
+    gradient within TRAIN_TOL of its leaf's largest |g| moves it by at
+    most lr eps TRAIN_TOL max|g| / (|g| + eps)^2, never more than 2 lr;
+    where the gradient is a rounding residue (below 1e-4 of the leaf's
+    largest) only 2 lr holds.  Allowed: that, plus 1e-6 max|p|."""
+    from torch.utils import _pytree as pytree
+
+    eps = 1e-8
+    worst = 0.0
+    for a, m, b in zip(pytree.tree_leaves(ref_params),
+                       pytree.tree_leaves(ref_mu),
+                       pytree.tree_leaves(got_params)):
+        a, b = a.float().cpu(), b.float().cpu()
+        g = m.float().abs().cpu() / (1 - beta1)
+        top = float(g.max())
+        moved = lr * eps * TRAIN_TOL * top / (g + eps) ** 2
+        allowed = torch.where(g >= 1e-4 * top, moved.clamp(max=2 * lr),
+                              torch.full_like(g, 2 * lr))
+        allowed = allowed + 1e-6 * float(a.abs().max())
+        worst = max(worst, float(((a - b).abs() / allowed).max()))
+    return worst
+
+
+def fmt_errs(errs):
+    return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+
+def hold_step(torch, label, cpu, card, lr):
+    """One train step's ``(params, opt, metrics)`` on the card against the
+    CPU's: loss and gradient norm within TRAIN_TOL, the first moments
+    (the clipped gradients) within TRAIN_TOL of their scale, the
+    parameters by :func:`step_err`.  Returns the errors."""
+    (p0, o0, m0), (p1, o1, m1) = cpu, card
+    errs = {
+        "loss": abs(float(m1["loss"]) - float(m0["loss"]))
+        / abs(float(m0["loss"])),
+        "gnorm": abs(float(m1["gnorm"]) - float(m0["gnorm"]))
+        / float(m0["gnorm"]),
+        "mu": tree_err(torch, o0.mu, o1.mu),
+        "params": step_err(torch, p0, o0.mu, p1, lr),
+    }
+    _need(all(v <= TRAIN_TOL for k, v in errs.items() if k != "params")
+          and errs["params"] <= 1.0,
+          f"{label}: the step differs from the reference's: {fmt_errs(errs)}"
+          )
+    return errs
+
+
+def one_step(torch, model, params, batch, *, accum=1, lr=3e-4):
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    step = train.make_train_step(model, adamw.AdamWConfig(lr=lr),
+                                 accum=accum, warmup_steps=0)
+    return step(params, adamw.init(params), batch, 0)
+
+
+def ranged(torch, name, fn):
+    """``fn`` inside a ``torch.profiler.record_function`` range ``name``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def phase_train_full_width(torch, device, card, wrappers):
+    """(a) TinyLlama-1.1B at full width in bf16: three steps under each
+    remat setting from one state (the last one timed warm), then 8 steps on
+    one batch, and one of them profiled."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(EFM_ARCH).replace(remat=True, remat_policy="dots",
+                                       param_dtype="bfloat16",
+                                       compute_dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params, opt = train.init_train_state(build_model(cfg, device=device), gen)
+    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, device)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(x.numel() for x in
+                   torch.utils._pytree.tree_leaves(params))
+    for w in wrappers.values():
+        w.launches = 0
+    one = {}
+    for label, remat, policy in (("off", False, "dots"),
+                                 ("dots", True, "dots"),
+                                 ("full", True, "full")):
+        model = build_model(cfg.replace(remat=remat, remat_policy=policy),
+                            device=device)
+        step = train.make_train_step(model, adamw.AdamWConfig(),
+                                     warmup_steps=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(TRAIN_WARM + 1):  # the last one warm
+            t0 = time.perf_counter()
+            m = step(params, opt, batch, 0)[2]  # the new state freed at once
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            one.setdefault(label, (float(m["loss"]), float(m["gnorm"])))
+            del m
+        one[label] += (torch.cuda.max_memory_allocated() / 2**30, secs[-1])
+        print(f"[19a] remat {label}: loss {one[label][0]:.6f}, gnorm "
+              f"{one[label][1]:.6f}, peak memory {one[label][2]:.2f} GiB, "
+              f"step {secs[-1] * 1e3:.1f} ms warm (first "
+              f"{secs[0] * 1e3:.1f} ms) ({card})")
+    losses = {v[0] for v in one.values()}
+    _need(len(losses) == 1, f"19a: remat changed the loss: {one}")
+    g0 = one["off"][1]
+    _need(all(abs(v[1] - g0) <= 0.01 * g0 for v in one.values()),
+          f"19a: remat moved the gradient norm by more than 1%: {one}")
+
+    model = build_model(cfg, device=device)
+    step = train.make_train_step(model, adamw.AdamWConfig(), warmup_steps=0)
+    probe = params["layers"]["mlp"]["up"]["w"][0, :4, :4].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, i)
+        loss = float(m["loss"])  # reads the step's end back: one sync
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(float(m["gnorm"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: w.launches for k, w in wrappers.items()}
+    _need(all(math.isfinite(x) for x in losses), f"19a: losses {losses}")
+    _need(losses[-1] < losses[0], f"19a: the loss did not fall: {losses}")
+    _need(not torch.equal(probe, params["layers"]["mlp"]["up"]["w"][0, :4,
+                                                                       :4]),
+          "19a: the parameters did not change")
+    med = statistics.median(times[TRAIN_WARM:])
+    # The forward runs inside "value_and_grad"'s range; the backward's
+    # kernels are launched by autograd's device thread, outside any range
+    # of this one: they are the rest of the busy time.
+    ranges = ("value_and_grad", "adamw.update")
+    with mock.patch.object(train, "value_and_grad", ranged(
+            torch, ranges[0], train.value_and_grad)), mock.patch.object(
+            adamw, "update", ranged(torch, ranges[1], adamw.update)):
+        prof = profile_steps(torch, "[19a]", [(
+            f"train step (remat dots; {card})",
+            lambda: step(params, opt, batch, 0), 1, "step")],
+            focus=("gemm", "nvjet"), ranges=ranges)
+    rest = prof["busy_us"] - sum(prof[r] for r in ranges)
+    print(f"[19a] train step (remat dots; {card}): backward and "
+          f"recomputation (launched by autograd's device thread) "
+          f"{rest:.1f} us/step ({rest / prof['busy_us']:.1%} of device "
+          f"busy)")
+    print(f"[19a] {EFM_ARCH} bf16, {n_params / 1e9:.3f} B parameters, remat "
+          f"dots, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamWConfig(): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; gnorm "
+          f"{', '.join(f'{x:.4f}' for x in gnorms)}")
+    print(f"[19a] step time median {med * 1e3:.1f} ms (steps "
+          f"{TRAIN_WARM}-{TRAIN_STEPS - 1}: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times[TRAIN_WARM:])}), "
+          f"{tokens / med:.0f} tokens/s, peak memory {peak:.2f} GiB "
+          f"({card})")
+    return {"step_ms": med * 1e3, "tokens_per_s": tokens / med,
+            "peak_gib": peak, "launches": launches}
+
+
+def phase_train_f32(torch, device, wrappers):
+    """(b) float32 TinyLlama-1.1B at 2 layers and full width: the card
+    against the CPU, and ``accum=2`` against ``accum=1`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    cfg = get_config(EFM_ARCH).replace(
+        n_layers=TRAIN_F32_LAYERS, remat=False, param_dtype="float32",
+        compute_dtype="float32")
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    p_cpu = move_constant_leaves(torch, build_model(cfg, device=cpu).init(
+        gen), gen)
+    b_cpu = train_batch(torch, cfg, TRAIN_F32_BATCH, TRAIN_F32_SEQ, SEED, cpu)
+    m_cpu, m_card = build_model(cfg, device=cpu), build_model(cfg,
+                                                              device=device)
+    p_card, b_card = tree_to(torch, p_cpu, device), tree_to(torch, b_cpu,
+                                                            device)
+    l0, g0 = train.value_and_grad(m_cpu.loss_fn, p_cpu, b_cpu)
+    l1, g1 = train.value_and_grad(m_card.loss_fn, p_card, b_card)
+    errs = {"loss": abs(float(l1) - float(l0)) / abs(float(l0)),
+            "grads": tree_err(torch, g0, g1)}
+    _need(errs["loss"] <= TRAIN_TOL and errs["grads"] <= TRAIN_TOL,
+          f"19b: loss or gradients on the card differ from the CPU: {errs}")
+    errs["step"] = hold_step(torch, "19b", one_step(torch, m_cpu, p_cpu,
+                                                     b_cpu),
+                             one_step(torch, m_card, p_card, b_card), 3e-4)
+    one = one_step(torch, m_card, p_card, b_card)
+    two = one_step(torch, m_card, p_card, b_card, accum=2)
+    errs["accum"] = hold_step(torch, "19b accum=2", one, two, 3e-4)
+    print(f"[19b] {EFM_ARCH} float32 at {TRAIN_F32_LAYERS} layers, "
+          f"{TRAIN_F32_BATCH} x {TRAIN_F32_SEQ} tokens: card vs CPU loss "
+          f"{errs['loss']:.3g}, gradients {errs['grads']:.3g} (relative, "
+          f"tol {TRAIN_TOL}), one step: {fmt_errs(errs['step'])}; accum=2 "
+          f"vs 1 on the card: {fmt_errs(errs['accum'])} (params: largest "
+          f"difference over the allowed, pass <= 1)")
+    return m_card, p_card, b_card
+
+
+def phase_train_families(torch, device):
+    """(c) One float32 train step of each other family at its smoke
+    configuration, on the card against the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cpu = torch.device("cpu")
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        gen = torch.Generator().manual_seed(SEED)
+        params = move_constant_leaves(
+            torch, build_model(cfg, device=cpu).init(gen), gen)
+        batch = train_batch(torch, cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ,
+                            SEED, cpu)
+        cpu_step = one_step(torch, build_model(cfg, device=cpu), params,
+                            batch, lr=1e-3)
+        card_step = one_step(torch, build_model(cfg, device=device),
+                             tree_to(torch, params, device),
+                             tree_to(torch, batch, device), lr=1e-3)
+        errs = hold_step(torch, f"19c {arch}", cpu_step, card_step, 1e-3)
+        print(f"[19c] {arch} ({cfg.family}{', MTP' if cfg.mtp else ''}) "
+              f"float32 smoke, one step, card vs CPU: {fmt_errs(errs)}")
+
+
+def phase_train_refusals(torch, device, f32, wrappers):
+    """(d) The kernel wrappers under grad on the card: each raises before
+    it launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import geometry as geo
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    def refuses(label, fn):
+        before = {k: w.launches for k, w in wrappers.items()}
+        try:
+            fn()
+        except RuntimeError as e:
+            _need("requires grad" in str(e), f"19d {label}: {e}")
+        else:
+            raise AssertionError(f"19d {label}: no error under grad")
+        _need({k: w.launches for k, w in wrappers.items()} == before,
+              f"19d {label}: a kernel launched")
+        print(f"[19d] {label}: refused before a launch")
+
+    def rand(*shape, grad=False):
+        return torch.rand(shape, device=device).requires_grad_(grad)
+
+    q = rand(1, 4, 128, 64, grad=True)
+    refuses("flash_attention_pallas, q.requires_grad",
+            lambda: wrappers["flash_attention_pallas"](q, rand(1, 4, 128, 64),
+                                                       rand(1, 4, 128, 64)))
+    model, params, batch = f32
+    kern = build_model(model.cfg.replace(attn_backend="pallas"),
+                       device=device)
+    refuses(f"{EFM_ARCH} float32 loss on attn_backend='pallas'",
+            lambda: train.value_and_grad(kern.loss_fn, params, batch))
+    for arch in ("rwkv6-3b", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch)
+        m = build_model(cfg, device=device, scan_backend="pallas")
+        p = m.init(torch.Generator(device=device).manual_seed(SEED))
+        toks = train_batch(torch, cfg, 2, 64, SEED, device)
+        live = torch.utils._pytree.tree_map(
+            lambda x: x.detach().requires_grad_(True), p)
+        refuses(f"{arch} prefill on scan_backend='pallas' under grad",
+                lambda: m.prefill(live, toks))
+    x = rand(1, 16, 16, 8, grad=True)
+    refuses("qconv_int8_pallas, x.requires_grad",
+            lambda: wrappers["int8_matmul_pallas/qconv"](
+                x, rand(), torch.zeros(72, 8, dtype=torch.int8,
+                                       device=device), rand(8), rand(8)))
+    intr = geo.Intrinsics.create(51.2, 32.0, 32.0, device)
+    for name in ("reproject_match_pallas", "reproject_match_pallas_tiled",
+                 "reproject_match_fused"):
+        refuses(f"{name}, entry_rgb.requires_grad",
+                lambda: wrappers[name](
+                    rand(2, 8, 8, 3, grad=True), rand(2, 8, 8), rand(2, 2),
+                    rand(2, 4, 4), rand(64, 64, 3), intr, window=16))
+
+
+def phase_train_fault(torch, device):
+    """(e) The depth stage, HIR and the gradient of ``depth.loss_fn`` with
+    cuDNN's switches at PyTorch's defaults, against the CPU."""
+    from unittest import mock
+
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.core import hir as hir_mod
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    gen = torch.Generator().manual_seed(SEED)
+    depth_cpu, hir_cpu = (depth_mod.init_params(gen),
+                          hir_mod.init_params(gen))
+    depth_card = depth_mod.init_params(gen).to(device)
+    depth_card.load_state_dict(depth_cpu.state_dict())
+    hir_card = hir_mod.init_params(gen).to(device)
+    hir_card.load_state_dict(hir_cpu.state_dict())
+    frame = torch.rand((128, 128, 3), generator=gen)
+    rgb = torch.rand((4, 64, 64, 3), generator=gen)
+    heat = torch.rand((4, 64, 64), generator=gen)
+    target = 1.0 + 3.0 * torch.rand((4, 64, 64), generator=gen)
+
+    def depth_err():
+        with torch.no_grad():
+            d0 = depth_mod.predict_fullres(depth_cpu, frame)
+            d1 = depth_mod.predict_fullres(depth_card, frame.to(device))
+        return float(((d1.cpu() - d0).abs() / (d0.abs() + 1.0)).max())
+
+    try:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = (
+            True, False, False)  # PyTorch's defaults
+        errs = {"depth": depth_err()}
+        with torch.no_grad():
+            h0 = hir_mod.forward(hir_cpu, rgb, heat, 4)
+            h1 = hir_mod.forward(hir_card, rgb.to(device), heat.to(device), 4)
+        errs["hir"] = float((h1.cpu() - h0).abs().max())
+        grads = []
+        for model, dev in ((depth_cpu, "cpu"), (depth_card, device)):
+            model.zero_grad()
+            depth_mod.loss_fn(model, rgb.to(dev), target.to(dev)).backward()
+            grads.append([p.grad for p in model.parameters()])
+        errs["grad"] = tree_err(torch, *grads)
+        _need(errs["depth"] <= 1e-5 and errs["hir"] <= 1e-5
+              and errs["grad"] <= TRAIN_TOL,
+              f"19e: with cuDNN at its defaults the card differs: {errs}")
+        _need((cudnn.allow_tf32, cudnn.deterministic) == (True, False),
+              "19e: conv2d_same did not restore cuDNN's switches")
+        with mock.patch.object(depth_mod, "_exact_cudnn",
+                               lambda: cudnn.flags(enabled=True,
+                                                   allow_tf32=True)):
+            unscoped = depth_err()
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+    print(f"[19e] cuDNN at PyTorch's defaults (TF32 allowed): depth stage "
+          f"{errs['depth']:.3g} from the CPU (relative, tol 1e-5), HIR "
+          f"{errs['hir']:.3g} (tol 1e-5), depth.loss_fn gradient "
+          f"{errs['grad']:.3g} (tol {TRAIN_TOL}); with conv2d_same's scope "
+          f"lifted (a reading): depth stage {unscoped:.3g}")
+
+
+def train_main() -> int:
+    """``chip_smoke.py --train``: phase 19; prints its results as one JSON
+    line, last."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    set_numerics(torch)
+    card = card_line()
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    full = phase_train_full_width(torch, device, card, wrappers)
+    torch.cuda.empty_cache()
+    for w in wrappers.values():
+        w.launches = 0
+    f32 = phase_train_f32(torch, device, wrappers)
+    phase_train_families(torch, device)
+    launches = {k: w.launches + full["launches"][k]
+                for k, w in wrappers.items()}
+    _need(not any(launches.values()),
+          f"19: training launched a kernel: {launches}")
+    print(f"[19] kernel launches in (a)-(c): {launches}")
+    phase_train_refusals(torch, device, f32, wrappers)
+    phase_train_fault(torch, device)
+    print(f"[19] phase 19 took {time.perf_counter() - t0:.1f} s ({card})")
+    full.pop("launches")
+    print(json.dumps({"train": full}))
+    return 0
+
+
+def phase_train_process() -> dict:
+    """Phase 19 in a process of its own (``chip_smoke.py --train``); its
+    lines pass through, its last line is its results as JSON."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--train"], stdout=subprocess.PIPE, text=True,
+                         timeout=600)
+    lines = out.stdout.splitlines()
+    print("\n".join(lines[:-1] if out.returncode == 0 else lines),
+          flush=True)
+    _need(out.returncode == 0 and lines,
+          f"phase 19 failed (exit {out.returncode})")
+    return json.loads(lines[-1])["train"]
+
+
+# ---------------------------------------------------------------------------
 
 
 def wire_ids():
@@ -4158,6 +4660,8 @@ def main() -> int:
     for name, n in phase_zoo(torch, device, kernel_wrappers(), epic,
                              card).items():
         launches[name] += n
+    torch.cuda.empty_cache()  # the card's memory to phase 19's process
+    phase_train_process()
     serve = phase_serve_process()
     errs.update(serve["errs"])
     times.update(serve["times"])
@@ -4183,4 +4687,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--wire-server"]:
         sys.exit(wire_server_main(*sys.argv[2:6]))
+    if sys.argv[1:] == ["--train"]:
+        sys.exit(train_main())
     sys.exit(serve_main() if sys.argv[1:] == ["--serve"] else main())

@@ -22,13 +22,15 @@ The EFM models keep the reference's pytree layout (linear weights
 self layers with ``(groups, period)``), so :func:`dense_from_jax`,
 :func:`rwkv6_from_jax`, :func:`hybrid_from_jax`, :func:`moe_mla_from_jax`,
 :func:`vlm_from_jax` and :func:`encdec_from_jax` only check the tree and
-move its leaves.
+move its leaves.  :func:`adamw_state_from_jax` and
+:func:`ef_state_from_jax` carry the optimizer's state across, its trees
+checked against the same layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -120,21 +122,34 @@ def hir_from_jax(params: Mapping[str, np.ndarray], device=None) -> HIRNet:
     return model
 
 
-def _tree_from_jax(expected, got, path: str, device):
+def _tensor_from_jax(a, device, dtype=None) -> torch.Tensor:
+    """An array as a tensor on ``device``, in ``dtype`` (default: its own;
+    bf16 arrays are ``ml_dtypes.bfloat16``, which numpy names so)."""
+    a = np.asarray(a)
+    if dtype is None:
+        dtype = (torch.bfloat16 if a.dtype.name == "bfloat16"
+                 else torch.from_numpy(np.empty(0, a.dtype)).dtype)
+    # float32 holds every bf16 value exactly, so the round trip is exact.
+    src = a if a.dtype.kind in "biu" else np.array(a, dtype=np.float32)
+    return torch.from_numpy(np.array(src)).to(device=device, dtype=dtype)
+
+
+def _tree_from_jax(expected, got, path: str, device, keep_dtype=False):
+    """``got`` checked against ``expected``'s keys and shapes, its leaves
+    in ``expected``'s dtypes (their own with ``keep_dtype``)."""
     if isinstance(expected, dict):
         if not isinstance(got, Mapping) or set(got) != set(expected):
             keys = sorted(got) if isinstance(got, Mapping) else type(got)
             raise ValueError(f"{path or '/'}: keys {keys} do not match "
                              f"{sorted(expected)}")
-        return {k: _tree_from_jax(v, got[k], f"{path}/{k}", device)
+        return {k: _tree_from_jax(v, got[k], f"{path}/{k}", device,
+                                  keep_dtype)
                 for k, v in expected.items()}
     a = np.asarray(got)
     if a.shape != tuple(expected.shape):
         raise ValueError(f"{path}: shape {a.shape} does not fit "
                          f"{tuple(expected.shape)}")
-    # float32 holds every bf16 value exactly, so the round trip is exact.
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
-    return t.to(device=device, dtype=expected.dtype)
+    return _tensor_from_jax(a, device, None if keep_dtype else expected.dtype)
 
 
 def dense_from_jax(params_np, cfg: ModelConfig, device=None):
@@ -207,7 +222,57 @@ def evu_from_jax(params_np, device=None):
     return out
 
 
-def _model_from_jax(module, params_np, cfg: ModelConfig, device):
+def _model_from_jax(module, params_np, cfg: ModelConfig, device,
+                    keep_dtype=False):
     device = resolve_device(device)
     expected = module.init(None, cfg, torch.device("meta"))
-    return _tree_from_jax(expected, params_np, "", device)
+    return _tree_from_jax(expected, params_np, "", device, keep_dtype)
+
+
+_FAMILY_MODULES = {"dense": transformer, "rwkv6": rwkv6, "hybrid": mamba2,
+                   "moe_mla": deepseek, "vlm": vision, "encdec": encdec}
+
+
+def _like_params(tree_np, cfg, device):
+    """A tree of the parameters' layout (moments, error feedback), checked
+    against ``cfg``'s parameter tree, each leaf in its own dtype; with
+    ``cfg=None`` any tree of dicts, lists and tuples, as it is."""
+    if cfg is not None:
+        return _model_from_jax(_FAMILY_MODULES[cfg.family], tree_np, cfg,
+                               device, keep_dtype=True)
+
+    def walk(x):
+        if isinstance(x, Mapping):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return _tensor_from_jax(x, device)
+
+    device = resolve_device(device)
+    return walk(tree_np)
+
+
+def adamw_state_from_jax(state, cfg: Optional[ModelConfig] = None,
+                         device=None):
+    """The reference's ``AdamWState`` (``repro.optim.adamw``, as numpy or
+    JAX arrays) as the port's: the step an int32 scalar, the moments in
+    their own dtype (float32, or the moment dtype they were cast to),
+    checked against ``cfg``'s parameter tree when ``cfg`` is given."""
+    from repro_torch.optim import adamw
+
+    device = resolve_device(device)
+    return adamw.AdamWState(
+        step=_tensor_from_jax(state.step, device, torch.int32),
+        mu=_like_params(state.mu, cfg, device),
+        nu=_like_params(state.nu, cfg, device),
+    )
+
+
+def ef_state_from_jax(ef, cfg: Optional[ModelConfig] = None, device=None):
+    """The reference's ``EFState`` (``repro.optim.compress``) as the
+    port's: the float32 error tree, as :func:`adamw_state_from_jax` maps
+    the moments."""
+    from repro_torch.optim import compress
+
+    return compress.EFState(_like_params(ef.error, cfg,
+                                         resolve_device(device)))

@@ -60,13 +60,59 @@ def conv_init(generator: torch.Generator, kh: int, kw: int, cin: int,
     ) * std
 
 
+def _exact_cudnn():
+    """cuDNN in full float32 (no TF32, which keeps 10 mantissa bits and is
+    PyTorch's default for convolutions) and deterministic, for the extent
+    of a ``with``; the global switches are restored after it."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _ExactConv2d(torch.autograd.Function):
+    """``F.conv2d`` (no padding) whose backward runs under
+    :func:`_exact_cudnn` too: autograd runs a convolution's backward after
+    the forward's ``with`` has ended, under the switches of that time."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, stride, groups):
+        with _exact_cudnn():
+            return F.conv2d(x, w, stride=stride, groups=groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, stride, groups = inputs
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.groups = stride, groups
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with _exact_cudnn():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                grad, x, w, None, [ctx.stride] * 2, [0, 0], [1, 1], False,
+                [0, 0], ctx.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None
+
+
 def conv2d_same(x: Tensor, w: Tensor, stride: int = 1, groups: int = 1) -> Tensor:
-    """NCHW convolution with JAX's ``SAME`` padding (extra pad at the end)."""
+    """NCHW convolution with JAX's ``SAME`` padding (extra pad at the end).
+
+    cuDNN runs it, and its backward, in full float32 and deterministically
+    (:func:`_exact_cudnn`) whatever the caller's global switches, which
+    are left as they were: the depth and HIR outputs feed ``floor()`` of
+    warped coordinates, and the parity rule compares with TF32 off."""
     pads = []
     for size, k in ((x.shape[3], w.shape[3]), (x.shape[2], w.shape[2])):
         total = max((-(-size // stride) - 1) * stride + k - size, 0)
         pads += [total // 2, total - total // 2]
-    return F.conv2d(F.pad(x, pads), w, stride=stride, groups=groups)
+    x = F.pad(x, pads)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ExactConv2d.apply(x, w, stride, groups)
+    with _exact_cudnn():
+        return F.conv2d(x, w, stride=stride, groups=groups)
 
 
 class _Layer(nn.Module):
@@ -172,6 +218,13 @@ def predict_fullres(model, frame: Tensor) -> Tensor:
         d = model(small)  # (1, 64, 64)
     return F.interpolate(d[None], size=(h, w), mode="bilinear",
                          align_corners=False, antialias=True)[0, 0]
+
+
+def loss_fn(model: DepthNet, rgb64: Tensor, depth64: Tensor) -> Tensor:
+    """Scale-aware log-depth L2 loss for training on synthetic ground
+    truth: ``rgb64`` (B, 64, 64, 3), ``depth64`` (B, 64, 64)."""
+    pred = forward(model, rgb64)
+    return torch.mean((torch.log(pred) - torch.log(depth64 + 1e-6)) ** 2)
 
 
 def memory_bytes(model: nn.Module, int8: bool) -> int:

@@ -23,6 +23,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+import torch
+
 # No --use_fast_math anywhere: divisions and expf stay IEEE.
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -127,6 +129,22 @@ def check_contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the kernel")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a launch would lose a gradient: grad mode is on and a
+    tensor off the CPU requires grad.  A launch reads its inputs through
+    their pointers and returns tensors without a ``grad_fn``, and the
+    kernels have no backward (neither have the Pallas kernels they
+    replace); on the CPU the wrappers run their plain, differentiable
+    form, so they pass.  Called before anything else a wrapper does."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            and t.device.type != "cpu" for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no "
+            f"backward; run the plain backend (\"ref\"/\"chunked\") to "
+            f"differentiate, or call it under torch.no_grad()")
 
 
 def check(err: int, name: str) -> None:

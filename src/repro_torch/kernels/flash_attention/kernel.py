@@ -39,7 +39,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels._build import (FLOAT, I64, INT, PTR, SHARED_CSRC,
-                                        CudaLibrary, check)
+                                        CudaLibrary, check, refuse_grad)
 
 LIBRARY = CudaLibrary(
     "flash_attention",
@@ -260,6 +260,7 @@ def flash_attention_pallas(
     (the kernels tile for the card themselves).  On the card the result is
     the ``(B, Hq, S, D)`` view of a ``(B, S, Hq, D)`` buffer.
     """
+    refuse_grad("flash_attention_pallas", q, k, v)
     check_inputs(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

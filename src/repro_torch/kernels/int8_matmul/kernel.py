@@ -20,7 +20,8 @@ from pathlib import Path
 import torch
 from torch import Tensor
 
-from repro_torch.kernels._build import INT, PTR, CudaLibrary, check
+from repro_torch.kernels._build import (INT, PTR, CudaLibrary, check,
+                                        refuse_grad)
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
 LIBRARY = CudaLibrary(
@@ -70,6 +71,7 @@ def int8_matmul_pallas(a: Tensor, b: Tensor) -> Tensor:
 
     Replaces ``repro/kernels/int8_matmul/kernel.py :: int8_matmul_pallas``.
     """
+    refuse_grad("int8_matmul_pallas", a, b)
     check_inputs(a, b)
     if a.device.type == "cpu":
         return int8_matmul_ref(a, b)

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from repro_torch.kernels import _slots
-from repro_torch.kernels._build import check, check_contiguous
+from repro_torch.kernels._build import check, check_contiguous, refuse_grad
 from repro_torch.kernels.int8_matmul.kernel import LIBRARY, MAX_K
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
@@ -250,6 +250,7 @@ def qconv_int8_pallas(x: Tensor, xscale: Tensor, qw: Tensor, wscale: Tensor,
                       relu: bool = True) -> Tensor:
     """One dense or pointwise int8 layer: float32 NHWC ``x`` -> float32
     NHWC ``relu(dequantise(conv(quantise(x), qw)) + b)``."""
+    refuse_grad("qconv_int8_pallas", x, xscale, qw, wscale, b)
     check_inputs(x, xscale, qw, wscale, b, stride)
     op = _slots.pick(qconv_int8_op, qconv_int8_plain, qconv_int8_launch,
                      x.device)

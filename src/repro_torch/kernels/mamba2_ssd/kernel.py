@@ -29,7 +29,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels._build import (I64, INT, PTR, SHARED_CSRC,
-                                        CudaLibrary, check)
+                                        CudaLibrary, check, refuse_grad)
 from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunk_parallel
 
 LIBRARY = CudaLibrary(
@@ -99,6 +99,7 @@ def mamba2_ssd_pallas(
 
     Replaces ``repro/kernels/mamba2_ssd/kernel.py :: mamba2_ssd_pallas``.
     """
+    refuse_grad("mamba2_ssd_pallas", x, a_log, bm, cm)
     check_inputs(x, a_log, bm, cm, chunk)
     if x.device.type == "cpu":
         return mamba2_ssd_chunk_parallel(x, a_log, bm, cm, chunk=chunk)

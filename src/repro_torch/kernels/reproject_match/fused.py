@@ -32,7 +32,7 @@ from torch import Tensor
 from repro_torch.api.registry import register_backend
 from repro_torch.core import geometry as geo
 from repro_torch.kernels import _slots
-from repro_torch.kernels._build import check, check_contiguous
+from repro_torch.kernels._build import check, check_contiguous, refuse_grad
 from repro_torch.kernels.reproject_match.kernel import (
     LIBRARY,
     check_inputs,
@@ -178,6 +178,8 @@ def reproject_match_fused(
         caller still ANDs buffer validity and saliency),
       overlap_ok (N, M) bool — the bare bbox-overlap bits.
     """
+    refuse_grad("reproject_match_fused", entry_rgb, entry_depth, entry_origin,
+                t_rel, frame)
     check_inputs(entry_rgb, entry_depth, entry_origin, t_rel, frame, intr,
                  window)
     op = _slots.pick(rm_fused, rm_fused_plain, rm_fused_launch, frame.device)

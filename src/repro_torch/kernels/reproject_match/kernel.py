@@ -37,7 +37,8 @@ from torch import Tensor
 from repro_torch.core import geometry as geo
 from repro_torch.kernels import _slots
 from repro_torch.kernels._build import (FLOAT, I64, INT, PTR, CudaLibrary,
-                                        check, check_contiguous)
+                                        check, check_contiguous,
+                                        refuse_grad)
 from repro_torch.kernels.reproject_match.ref import reproject_match_ref
 
 # --fmad=false: see the precision note in csrc/reproject_match.cu.
@@ -253,6 +254,8 @@ def reproject_match_pallas(
     Replaces ``repro/kernels/reproject_match/kernel.py ::
     reproject_match_pallas``; same contract as :func:`reproject_match_ref`.
     """
+    refuse_grad("reproject_match_pallas", entry_rgb, entry_depth,
+                entry_origin, t_rel, frame)
     return launch_scores(rm_scores, rm_scores_launch, entry_rgb,
                          entry_depth, entry_origin, t_rel, frame, intr,
                          window)
@@ -277,6 +280,8 @@ def reproject_match_pallas_tiled(
     Replaces ``repro/kernels/reproject_match/kernel.py ::
     reproject_match_pallas_tiled``.
     """
+    refuse_grad("reproject_match_pallas_tiled", entry_rgb, entry_depth,
+                entry_origin, t_rel, frame)
     return launch_scores(rm_scores_tiled, rm_scores_tiled_launch,
                          entry_rgb, entry_depth, entry_origin, t_rel, frame,
                          intr, window)

@@ -28,7 +28,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels._build import (I64, INT, PTR, SHARED_CSRC,
-                                        CudaLibrary, check)
+                                        CudaLibrary, check, refuse_grad)
 from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunk_parallel
 
 LIBRARY = CudaLibrary(
@@ -98,6 +98,7 @@ def rwkv6_scan_pallas(
 
     Replaces ``repro/kernels/rwkv6_scan/kernel.py :: rwkv6_scan_pallas``.
     """
+    refuse_grad("rwkv6_scan_pallas", r, k, v, w_log, u)
     check_inputs(r, k, v, w_log, u, chunk)
     if r.device.type == "cpu":
         return rwkv6_scan_chunk_parallel(r, k, v, w_log, u, chunk=chunk)

@@ -5,14 +5,13 @@ Port of ``repro/models/deepseek.py``.  Stack layout, as the reference:
   * layers [first_k_dense, L): MLA attention + routed MoE (+ shared
     experts);
   * optional MTP module (V3): one extra dense block that predicts token
-    t+2 from [h_t ; emb(t_{t+1})].  Only the training loss reads it; its
-    parameters are built so that the trees match for conversion.
+    t+2 from [h_t ; emb(t_{t+1})].  Only the training loss reads it.
 
 The dense prefix and the MoE stack are two stacked parameter trees
-(leading ``L`` axis each), run by Python loops over their layers.
-
-Left out: ``loss_fn`` with the load-balance and MTP terms (training,
-``ROADMAP.md`` Queue 1 item 5).
+(leading ``L`` axis each), run by Python loops over their layers;
+``cfg.remat`` recomputes each block in the backward pass.  ``loss_fn``
+adds ``moe_aux_coef`` times the mean load-balance term and, with
+``cfg.mtp``, ``mtp_loss_coef`` times the MTP head's loss.
 """
 
 from __future__ import annotations
@@ -89,11 +88,21 @@ def _moe_block(cfg: ModelConfig, lp: Params,
 
 def _backbone(p: Params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """Run the full stack; returns (hidden, mean aux term)."""
+
+    def dense_body(x, lp):
+        return _dense_block(cfg, lp, x)
+
+    def moe_body(x, lp):
+        return _moe_block(cfg, lp, x)
+
+    if cfg.remat:
+        dense_body = L.remat_wrap(cfg, dense_body)
+        moe_body = L.remat_wrap(cfg, moe_body)
     for i in range(cfg.first_k_dense):
-        x = _dense_block(cfg, layer_params(p["dense_layers"], i), x)
+        x = dense_body(x, layer_params(p["dense_layers"], i))
     auxes = []
     for i in range(cfg.n_layers - cfg.first_k_dense):
-        x, aux = _moe_block(cfg, layer_params(p["moe_layers"], i), x)
+        x, aux = moe_body(x, layer_params(p["moe_layers"], i))
         auxes.append(aux)
     return x, torch.stack(auxes).mean()
 
@@ -105,6 +114,33 @@ def forward(p: Params, tokens: Tensor,
     x, aux = _backbone(p, x, cfg)
     x = L.rmsnorm(p["final_norm"], x)
     return L.unembed(p["embed"], x, cfg.cdt), aux
+
+
+def mtp_loss(p: Params, h: Tensor, tokens: Tensor,
+             cfg: ModelConfig) -> Tensor:
+    """The MTP head's mean loss: from h_t and emb(t_{t+1}), token t+2."""
+    mp = p["mtp"]
+    h_in = L.rmsnorm(mp["norm_h"], h[:, :-2])
+    e_in = L.rmsnorm(mp["norm_e"],
+                     L.embed(p["embed"], tokens[:, 1:-1], cfg.cdt))
+    z = L.linear(mp["proj"], torch.cat([h_in, e_in], -1), cfg.cdt)
+    z = _dense_block(cfg.replace(d_ff_dense=cfg.d_ff), mp["block"], z)
+    logits = L.unembed(p["embed"], z, cfg.cdt)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tokens[:, 2:].long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    tokens = batch["tokens"]
+    x = L.embed(p["embed"], tokens, cfg.cdt)
+    h, aux = _backbone(p, x, cfg)
+    logits = L.unembed(p["embed"], L.rmsnorm(p["final_norm"], h), cfg.cdt)
+    loss = L.next_token_loss(logits, tokens, batch.get("mask"))
+    loss = loss + cfg.moe_aux_coef * aux
+    if cfg.mtp:
+        loss = loss + cfg.mtp_loss_coef * mtp_loss(p, h, tokens, cfg)
+    return loss
 
 
 # ---------------------------------------------------------------------------

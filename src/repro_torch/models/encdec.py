@@ -14,8 +14,10 @@ with eps 1e-5, the tanh GeLU.
 
 Serving decodes the decoder one token at a time against (a) the
 self-attention KV cache and (b) the cross K/V precomputed from the
-encoder output.  Left out: ``loss_fn`` (training) and the
-decode-sharding hints over a mesh (``ROADMAP.md`` Queue 1 item 6).
+encoder output.  ``loss_fn`` is the training loss; ``cfg.remat``
+recomputes each encoder and decoder block in the backward pass.  Left
+out: the decode-sharding hints over a mesh (``ROADMAP.md`` Queue 1 item
+6).
 """
 
 from __future__ import annotations
@@ -120,8 +122,14 @@ def init(gen, cfg: ModelConfig, device) -> Params:
 
 def encode(p: Params, src_embed: Tensor, cfg: ModelConfig) -> Tensor:
     x = src_embed.to(cfg.cdt)
+
+    def body(x, lp):
+        return enc_block(lp, x, cfg)
+
+    if cfg.remat:
+        body = L.remat_wrap(cfg, body)
     for i in range(cfg.enc_layers):
-        x = enc_block(layer_params(p["enc_layers"], i), x, cfg)
+        x = body(x, layer_params(p["enc_layers"], i))
     return L.layernorm(p["enc_norm"], x)
 
 
@@ -130,10 +138,21 @@ def forward(p: Params, src_embed: Tensor, tgt_tokens: Tensor,
     """(B, S_src, D) source, (B, S) target tokens -> (B, S, V) fp32."""
     enc_out = encode(p, src_embed, cfg)
     x = L.embed(p["embed"], tgt_tokens, cfg.cdt)
+
+    def body(x, lp):
+        return dec_block(lp, x, enc_out, cfg)
+
+    if cfg.remat:
+        body = L.remat_wrap(cfg, body)
     for i in range(cfg.dec_layers):
-        x = dec_block(layer_params(p["dec_layers"], i), x, enc_out, cfg)
+        x = body(x, layer_params(p["dec_layers"], i))
     x = L.layernorm(p["dec_norm"], x)
     return L.unembed(p["embed"], x, cfg.cdt)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    logits = forward(p, batch["src_embed"], batch["tokens"], cfg)
+    return L.next_token_loss(logits, batch["tokens"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

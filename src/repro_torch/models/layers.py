@@ -11,19 +11,24 @@ Port of ``repro/models/layers.py``.  Conventions (as in the reference):
   * Attention layouts: activations (B, S, D_model), per-head (B, H, S, Dh).
   * Linear weights are ``(d_in, d_out)``, the reference's layout.
 
+Training: :func:`next_token_loss` and :func:`remat_wrap`
+(``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
+
 Left out: the mesh helpers of sharded decode (``ambient_mesh_axes``,
-``decode_seq_shard``; ``ROADMAP.md`` Queue 1 item 6), ``remat_wrap`` and
-the loss (training).
+``decode_seq_shard``; ``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_pallas
 
@@ -151,6 +156,30 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# What ``"dots"`` keeps: the products without batch dimensions (the
+# projections, ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``);
+# attention's and the experts' batched ``bmm``s are recomputed with the rest.
+_DOTS_SAVEABLE = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` recomputed in the backward pass, with the configured policy:
+    ``"full"`` saves only the layer's inputs (the memory lever when
+    ``"dots"`` still overflows), ``"dots"`` also the outputs of the
+    unbatched products (``aten.mm``/``addmm``)."""
+    if cfg.remat_policy == "full":
+        def run(*args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+    else:
+        def run(*args):
+            return checkpoint(
+                fn, *args, use_reentrant=False, preserve_rng_state=False,
+                context_fn=partial(create_selective_checkpoint_contexts,
+                                   _DOTS_SAVEABLE))
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -468,3 +497,24 @@ def mlp(p: Params, x: Tensor, compute_dtype=torch.float32) -> Tensor:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(linear(p["up"], x, compute_dtype), approximate="tanh")
     return linear(p["down"], h, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def next_token_loss(logits: Tensor, tokens: Tensor,
+                    mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token cross-entropy (``logsumexp - gold``). logits
+    (B,S,V); tokens (B,S); ``mask`` (B,S) weights the targets, the mean
+    over ``max(sum(mask), 1)``."""
+    lg = logits[:, :-1]
+    tg = tokens[:, 1:].long()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tg[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    m = mask[:, 1:].float()
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -26,7 +26,9 @@ attention already computed, where the reference computes them again in
 ``cfg.attn_backend``, as ``forward``'s does in both packages (the
 reference's ``prefill`` leaves it on the masked default), so
 ``"pallas"`` puts a prefill within the window on the flash kernel.
-Left out: ``loss_fn`` and remat (training).
+``forward`` and ``loss_fn`` (training) run the ``"chunked"`` SSD;
+``cfg.remat`` recomputes each Mamba layer in the backward pass (the
+shared blocks are kept, as in the reference).
 """
 
 from __future__ import annotations
@@ -228,14 +230,24 @@ def forward(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     """(B, S) int -> (B, S, V) fp32 logits."""
     x = L.embed(p["embed"], tokens, cfg.cdt)
     emb0 = x
+
+    def mamba_body(x, lp):
+        return x + mamba_block(lp, x, cfg).to(x.dtype)
+
+    if cfg.remat:
+        mamba_body = L.remat_wrap(cfg, mamba_body)
     for _, layers, bi in _groups(cfg):
         for i in layers:
-            x = x + mamba_block(layer_params(p["layers"], i), x,
-                                cfg).to(x.dtype)
+            x = mamba_body(x, layer_params(p["layers"], i))
         sp = layer_params(p["shared"], bi)
         x = x + shared_block(sp, x, emb0, cfg).to(x.dtype)
     x = L.rmsnorm(p["final_norm"], x)
     return L.unembed(p["embed"], x, cfg.cdt)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    logits = forward(p, batch["tokens"], cfg)
+    return L.next_token_loss(logits, batch["tokens"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

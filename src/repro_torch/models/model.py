@@ -4,6 +4,8 @@ Port of ``repro/models/model.py`` for all six families.  Every family
 exposes the same surface, so the server never branches on architecture:
 
   * ``init(generator)                -> params``  (drawn on ``device``)
+  * ``loss_fn(params, batch)         -> scalar loss`` (MoE aux and MTP
+    terms included by the family's loss)
   * ``forward(params, batch)         -> logits``
   * ``prefill(params, batch)         -> (logits, serve_state)``
   * ``init_serve(batch, max_seq)     -> serve_state``  (zeros)
@@ -20,9 +22,12 @@ scan of the rwkv6 and hybrid prefills: the reference's ``"chunked"`` by
 default, ``"pallas"`` for the CUDA kernels (the other families have no
 scan).  The encoder-decoder's ``prefill`` runs the encoder only and
 returns ``(None, cache)``: the cross K/V and an empty self-cache of the
-prompt's length, from which decode starts at position 0.  The
-reference's ``loss_fn`` (training) and its shape specs (sharded lowering)
-are not ported yet.
+prompt's length, from which decode starts at position 0.  ``loss_fn``
+runs the reference's training forms (attention on ``cfg.attn_backend``,
+``"ref"`` by default; the RWKV6 scan on ``"ref"``, the SSD on
+``"chunked"``); the CUDA kernels have no backward and their wrappers
+raise under grad.  The reference's shape specs (sharded lowering) are not
+ported yet (``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[torch.Generator], Params]
+    loss_fn: Callable[[Params, Dict[str, Tensor]], Tensor]
     forward: Callable[[Params, Dict[str, Tensor]], Tensor]
     prefill: Callable[[Params, Dict[str, Tensor]], Any]
     init_serve: Callable[[int, int], Any]
@@ -69,6 +75,7 @@ def build_model(cfg: ModelConfig, device=None, *,
             cfg=cfg,
             device=device,
             init=lambda gen: M.init(gen, cfg, device),
+            loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
             forward=lambda p, b: M.forward(p, b["tokens"], cfg),
             prefill=lambda p, b: M.prefill(p, b["tokens"], cfg),
             init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
@@ -81,6 +88,7 @@ def build_model(cfg: ModelConfig, device=None, *,
             cfg=cfg,
             device=device,
             init=lambda gen: M.init(gen, cfg, device),
+            loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
             forward=lambda p, b: M.forward(p, b["tokens"], cfg),
             prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
                                            scan_backend=scan_backend),
@@ -94,6 +102,7 @@ def build_model(cfg: ModelConfig, device=None, *,
             cfg=cfg,
             device=device,
             init=lambda gen: M.init(gen, cfg, device),
+            loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
             forward=lambda p, b: M.forward(p, b["tokens"], cfg),
             prefill=lambda p, b: M.prefill(p, b["tokens"], cfg,
                                            scan_backend=scan_backend),
@@ -107,6 +116,7 @@ def build_model(cfg: ModelConfig, device=None, *,
             cfg=cfg,
             device=device,
             init=lambda gen: M.init(gen, cfg, device),
+            loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
             forward=lambda p, b: M.forward(p, b["tokens"], cfg)[0],
             prefill=lambda p, b: M.prefill(p, b["tokens"], cfg),
             init_serve=lambda bs, s: M.init_cache(cfg, bs, s, device),
@@ -119,6 +129,7 @@ def build_model(cfg: ModelConfig, device=None, *,
             cfg=cfg,
             device=device,
             init=lambda gen: M.init(gen, cfg, device),
+            loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
             forward=lambda p, b: M.forward(p, b["tokens"], b["img_embed"],
                                            cfg),
             prefill=lambda p, b: M.prefill(p, b["tokens"], b["img_embed"],
@@ -139,6 +150,7 @@ def build_model(cfg: ModelConfig, device=None, *,
         cfg=cfg,
         device=device,
         init=lambda gen: M.init(gen, cfg, device),
+        loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
         forward=lambda p, b: M.forward(p, b["src_embed"], b["tokens"], cfg),
         prefill=ed_prefill,
         init_serve=lambda bs, s: M.init_cache(cfg, bs, s, M.src_len(cfg, s),

@@ -16,8 +16,9 @@ Serving state per layer: (shift_tm (B, D), shift_cm (B, D), wkv (B, H, K,
 V)), O(1) in context length.  The layer stack keeps the reference's
 layout (a leading ``L`` axis) and a Python loop takes the place of
 ``lax.scan``.  ``prefill`` takes the scan's backend: the reference's
-``"chunked"`` by default, ``"pallas"`` for the CUDA kernel.  Left out:
-``loss_fn`` and remat (training).
+``"chunked"`` by default, ``"pallas"`` for the CUDA kernel.  ``forward``
+and ``loss_fn`` (training) run the scan on ``"ref"``, as the reference's
+do; ``cfg.remat`` recomputes each block in the backward pass.
 """
 
 from __future__ import annotations
@@ -204,10 +205,21 @@ def forward(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     reference's ``block_apply`` has it)."""
     x = L.embed(p["embed"], tokens, cfg.cdt)
     x = L.layernorm(p["ln_in"], x)
+
+    def body(x, lp):
+        return block_apply(cfg, lp, x)
+
+    if cfg.remat:
+        body = L.remat_wrap(cfg, body)
     for i in range(cfg.n_layers):
-        x = block_apply(cfg, layer_params(p["layers"], i), x)
+        x = body(x, layer_params(p["layers"], i))
     x = L.layernorm(p["final_norm"], x)
     return L.unembed(p["embed"], x, cfg.cdt)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    logits = forward(p, batch["tokens"], cfg)
+    return L.next_token_loss(logits, batch["tokens"], batch.get("mask"))
 
 
 def prefill(

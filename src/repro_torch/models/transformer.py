@@ -4,13 +4,15 @@ Port of ``repro/models/transformer.py``.  The layer stack keeps the
 reference's layout, parameters with a leading ``L`` axis, and a Python
 loop over the layers takes the place of ``lax.scan``.
 
-Three entry points:
-  * ``forward``      — full-sequence logits.
+Entry points:
+  * ``forward``      — full-sequence logits; ``cfg.remat`` recomputes
+    each block in the backward pass (``layers.remat_wrap``).
+  * ``loss_fn``      — the mean next-token loss (training).
   * ``prefill``      — last-position logits + per-layer KV cache.
   * ``decode_step``  — one token against the cache (serving).
 
-Left out: ``loss_fn`` and remat (training), and the sliding window that
-only the hybrid family's shared blocks pass.
+Left out: the sliding window that only the hybrid family's shared blocks
+pass.
 """
 
 from __future__ import annotations
@@ -146,9 +148,20 @@ def _logits(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
 def forward(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     """(B, S) int -> (B, S, V) fp32 logits."""
     x = L.embed(p["embed"], tokens, cfg.cdt)
+
+    def body(x, lp):
+        return block_apply(cfg, lp, x)
+
+    if cfg.remat:
+        body = L.remat_wrap(cfg, body)
     for i in range(cfg.n_layers):
-        x = block_apply(cfg, layer_params(p["layers"], i), x)
+        x = body(x, layer_params(p["layers"], i))
     return _logits(cfg, p, x)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    logits = forward(p, batch["tokens"], cfg)
+    return L.next_token_loss(logits, batch["tokens"], batch.get("mask"))
 
 
 def init_cache(

@@ -21,8 +21,10 @@ stream of any length serves.
 Self-attention runs on ``cfg.attn_backend`` through
 :func:`~repro_torch.models.transformer.block_apply` (the flash kernel on
 ``"pallas"``); cross-attention always takes the masked path, as in the
-reference.  Left out: ``loss_fn`` (training) and the decode-sharding
-hints over a mesh (``ROADMAP.md`` Queue 1 item 6).
+reference.  ``loss_fn`` is the training loss; ``cfg.remat`` recomputes
+each self block in the backward pass (the cross blocks are kept, as in
+the reference).  Left out: the decode-sharding hints over a mesh
+(``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -93,13 +95,24 @@ def forward(p: Params, tokens: Tensor, img_embed: Tensor,
     """(B, S) tokens, (B, N, D) image embeddings -> (B, S, V) fp32."""
     x = L.embed(p["embed"], tokens, cfg.cdt)
     img = img_embed.to(cfg.cdt)
+
+    def self_body(x, lp):
+        return TF.block_apply(cfg, lp, x)
+
+    if cfg.remat:
+        self_body = L.remat_wrap(cfg, self_body)
     for g in range(n_groups(cfg)):
         x = xattn_block(layer_params(p["xattn_layers"], g), x, img, cfg)
         slayers = layer_params(p["self_layers"], g)
         for j in range(cfg.cross_attn_period):
-            x = TF.block_apply(cfg, layer_params(slayers, j), x)
+            x = self_body(x, layer_params(slayers, j))
     x = L.rmsnorm(p["final_norm"], x)
     return L.unembed(p["embed"], x, cfg.cdt)
+
+
+def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+    logits = forward(p, batch["tokens"], batch["img_embed"], cfg)
+    return L.next_token_loss(logits, batch["tokens"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 matmul and the fused int8 convolution, and the RWKV6 and Mamba-2 SSD scans;
 the serving pool, directly and through the wire codec; the checkpoint
 store on card tensors; the EVU probe and the MoE/MLA, VLM and
-encoder-decoder models against the CPU (marked ``cuda``; skipped without
+encoder-decoder models against the CPU; training (a train step of every
+family against the CPU, the wrappers refusing grad, the depth stage with
+cuDNN's switches at PyTorch's defaults) (marked ``cuda``; skipped without
 a card).  Imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1030,3 +1032,207 @@ def test_zoo_on_the_card_matches_the_cpu(device, arch, backend):
     assert out["cuda"][3] == (launches.get(cfg.family, 0)
                               if backend == "pallas" else 0)
     assert out["cpu"][3] == 0
+
+
+# ---------------------------------------------------------------------------
+# Training: the wrappers under grad, a train step against the CPU, and the
+# depth stage with cuDNN at PyTorch's defaults.
+# ---------------------------------------------------------------------------
+
+
+def _refuses(wrapper, call):
+    """``call()`` raises the grad refusal and launches nothing."""
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    assert wrapper.launches == before
+
+
+def test_every_wrapper_refuses_grad_on_the_card(device):
+    """An input that requires grad stops each wrapper before its launch
+    (a launch would return a tensor without a ``grad_fn``); under
+    ``no_grad`` the same call launches."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+    from repro_torch.kernels.int8_matmul.qconv import qconv_int8_pallas
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+
+    def rand(*shape, grad=False):
+        return torch.rand(shape, device=device).requires_grad_(grad)
+
+    args, intr = _inputs(device, 4, 16, 128, 3)
+    qw = torch.randint(-127, 128, (72, 8), dtype=torch.int8, device=device)
+    calls = {
+        flash_attention_pallas: lambda g: flash_attention_pallas(
+            rand(1, 4, 128, 64, grad=g), rand(1, 4, 128, 64),
+            rand(1, 4, 128, 64)),
+        rwkv6_scan_pallas: lambda g: rwkv6_scan_pallas(
+            rand(1, 2, 64, 16, grad=g), rand(1, 2, 64, 16),
+            rand(1, 2, 64, 16), -rand(1, 2, 64, 16), rand(2, 16), chunk=32),
+        mamba2_ssd_pallas: lambda g: mamba2_ssd_pallas(
+            rand(1, 2, 64, 16, grad=g), -rand(1, 2, 64), rand(1, 64, 16),
+            rand(1, 64, 16), chunk=32),
+        qconv_int8_pallas: lambda g: qconv_int8_pallas(
+            rand(1, 16, 16, 8, grad=g), rand() + 0.1, qw, rand(8), rand(8)),
+        reproject_match_pallas: lambda g: reproject_match_pallas(
+            args[0].clone().requires_grad_(g), *args[1:], intr, window=32),
+        reproject_match_pallas_tiled: lambda g: reproject_match_pallas_tiled(
+            args[0].clone().requires_grad_(g), *args[1:], intr, window=32),
+        reproject_match_fused: lambda g: reproject_match_fused(
+            args[0].clone().requires_grad_(g), *args[1:], intr, window=32),
+    }
+    for wrapper, call in calls.items():
+        _refuses(wrapper, lambda: call(True))
+        before = wrapper.launches
+        with torch.no_grad():
+            call(True)
+        call(False)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, wrapper.__name__
+
+
+@pytest.mark.parametrize("arch,backend", [("tinyllama-1.1b", "attn"),
+                                          ("zamba2-2.7b", "attn"),
+                                          ("rwkv6-3b", "scan"),
+                                          ("zamba2-2.7b", "scan")])
+def test_a_loss_on_a_kernel_raises_on_the_card(device, arch, backend):
+    """A loss on ``attn_backend="pallas"``, or a prefill on
+    ``scan_backend="pallas"``, under grad raises at the launch instead of
+    returning a result whose gradient lost the kernel's op."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas)
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    tokens = {"tokens": torch.randint(0, cfg.vocab, (2, 64), device=device)}
+    if backend == "attn":
+        model = build_model(cfg.replace(attn_backend="pallas"),
+                            device=device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        _refuses(flash_attention_pallas,
+                 lambda: train.value_and_grad(model.loss_fn, params, tokens))
+        return
+    model = build_model(cfg, device=device, scan_backend="pallas")
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    live = {k: _tree_map_live(v) for k, v in params.items()}
+    wrapper = (rwkv6_scan_pallas if cfg.family == "rwkv6"
+               else mamba2_ssd_pallas)
+    _refuses(wrapper, lambda: model.prefill(live, tokens))
+
+
+def _tree_map_live(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map_live(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_(True)
+
+
+@pytest.mark.parametrize("arch", [
+    "olmo-1b", "tinyllama-1.1b", "qwen2.5-3b", "phi4-mini-3.8b",
+    "deepseek-v2-lite-16b", "deepseek-v3-671b", "rwkv6-3b", "zamba2-2.7b",
+    "llama-3.2-vision-11b", "seamless-m4t-large-v2"])
+def test_train_step_on_the_card_matches_the_cpu(device, arch):
+    """One float32 AdamW step of the smoke config from the same state on
+    the card and on the CPU: loss and gradient norm within 1e-4
+    relative, the first moments (the clipped gradients g, times 1 - b1)
+    within 1e-4 of their scale, and the parameters within what such a
+    gradient can move them: the first step moves an element by
+    lr g / (|g| + eps), so by at most lr eps 1e-4 max|g| / (|g| + eps)^2,
+    never more than 2 lr (an element whose gradient is a rounding
+    residue, below 1e-4 of the leaf's largest, may move either way),
+    plus 1e-6 of the leaf's largest |p|."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg, device="cpu").init(gen)
+    if cfg.family == "vlm":
+        for key in ("gate_attn", "gate_mlp"):
+            g = params["xattn_layers"][key]
+            params["xattn_layers"][key] = torch.rand(g.shape,
+                                                     generator=gen) + 0.5
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    if cfg.family == "vlm":
+        batch["img_embed"] = 0.1 * torch.randn(2, cfg.img_seq, cfg.d_model,
+                                               generator=gen)
+    if cfg.family == "encdec":
+        batch["src_embed"] = 0.1 * torch.randn(
+            2, encdec.src_len(cfg, 16), cfg.d_model, generator=gen)
+    lr, tol, out = 1e-3, 1e-4, {}
+    for where in ("cpu", device):
+        model = build_model(cfg, device=where)
+        p = _tree_to(params, model.device)
+        step = train.make_train_step(model, adamw.AdamWConfig(lr=lr),
+                                     warmup_steps=0)
+        out[str(model.device.type)] = step(
+            p, adamw.init(p), {k: v.to(model.device) for k, v in
+                               batch.items()}, 0)
+    (p0, o0, m0), (p1, o1, m1) = out["cpu"], out["cuda"]
+    for k in ("loss", "gnorm"):
+        assert abs(float(m1[k]) - float(m0[k])) <= tol * abs(float(m0[k]))
+    for a, b in zip(pytree.tree_leaves(o0.mu), pytree.tree_leaves(o1.mu)):
+        assert float((b.cpu() - a).abs().max()) <= tol * float(
+            a.abs().max())
+    for a, m, b in zip(*(pytree.tree_leaves(t) for t in (p0, o0.mu, p1))):
+        g = m.abs() / 0.1
+        top = float(g.max())
+        moved = (lr * 1e-8 * tol * top / (g + 1e-8) ** 2).clamp(max=2 * lr)
+        allowed = torch.where(g >= 1e-4 * top, moved,
+                              torch.full_like(g, 2 * lr))
+        assert bool(((b.cpu() - a).abs() <= allowed + 1e-6 * float(
+            a.abs().max())).all())
+
+
+def test_depth_stage_with_cudnn_at_its_defaults_matches_the_cpu(device):
+    """With cuDNN's switches at PyTorch's defaults (TF32 allowed, not
+    deterministic), ``conv2d_same`` still convolves in full float32: the
+    fp32 depth stage and HIR within 1e-5 of the CPU (the parity tests'
+    rule), the gradient of ``depth.loss_fn`` within 1e-4 of each weight's
+    largest; the switches are as they were after."""
+    from repro_torch.core import depth as depth_mod
+    from repro_torch.core import hir as hir_mod
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    gen = torch.Generator().manual_seed(0)
+    nets = {"cpu": (depth_mod.init_params(gen), hir_mod.init_params(gen))}
+    nets["cuda"] = tuple(type(n)(torch.Generator().manual_seed(1)).to(device)
+                         for n in nets["cpu"])
+    for a, b in zip(nets["cpu"], nets["cuda"]):
+        b.load_state_dict(a.state_dict())
+    frame = torch.rand((128, 128, 3), generator=gen)
+    rgb = torch.rand((4, 64, 64, 3), generator=gen)
+    heat = torch.rand((4, 64, 64), generator=gen)
+    target = 1.0 + 3.0 * torch.rand((4, 64, 64), generator=gen)
+    out = {}
+    try:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = (
+            True, False, False)
+        for where, (dnet, hnet) in nets.items():
+            dev = next(dnet.parameters()).device
+            with torch.no_grad():
+                d = depth_mod.predict_fullres(dnet, frame.to(dev))
+                h = hir_mod.forward(hnet, rgb.to(dev), heat.to(dev), 4)
+            depth_mod.loss_fn(dnet, rgb.to(dev), target.to(dev)).backward()
+            out[where] = (d.cpu(), h.cpu(),
+                          [p.grad.cpu() for p in dnet.parameters()])
+        assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5)
+    for a, b in zip(out["cpu"][2], out["cuda"][2]):
+        assert float((b - a).abs().max()) <= 1e-4 * float(a.abs().max())
+
