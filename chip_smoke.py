@@ -156,8 +156,10 @@ and prints no result line):
    sync in a tick's dispatch (sync-debug mode "error"), aggregate
    frames/s, tick latency median and p99, device idle share, peak device
    memory a slot, and device launches per tick-frame at 8 and at 32 live
-   streams (equal: one step program, one launch of each kernel a frame
-   for all slots).
+   streams; held: every recorded tick at either count dispatches the same
+   host ops in the same order (one step program, one launch of each
+   kernel a frame for all slots; only the host-made slot lists differ in
+   length).
 17. The wire in front of phase 16's server, in the same process after
    it.  (a) Phase 16's schedule recorded by the port's ``record_streams``
    (EPWF bytes), each stream driven by a ``ResumableSession`` through a
@@ -217,6 +219,13 @@ and prints no result line):
    ``"ref"``, the last position's logits within 0.5; prefill (the encoder
    and the cross cache: 24 launches) and 8 greedy tokens from position 0;
    profiled; float32 at 2 + 2 layers within 1e-3.
+   18a (the deterministic MoE combine): the DeepSeek-V2-Lite-16B bf16
+   ``"chunked"`` prefill runs twice more; the two logits and the first
+   MoE layer's routing (gates and expert ids, recorded at ``moe._route``)
+   bitwise equal; readings: the prefill in 5 alternating pairs with the
+   fixed-order combine and with the ``index_add_`` scatter swapped in
+   (beside PR 24's 145-155 ms), whether two scatter prefills agree, and
+   each combine alone at the first MoE layer's shapes.
 19. Training, in a process of its own (``chip_smoke.py --train``, started
    after phase 18, so its memory readings are its own).  (a)
    TinyLlama-1.1B at full width in bf16 with ``remat=True``, ``"dots"``:
@@ -246,6 +255,28 @@ and prints no result line):
    the gradient of ``depth.loss_fn`` within ``TRAIN_TOL``; beside them,
    as a reading, the same depth stage with ``conv2d_same``'s scope
    lifted.
+20. Distribution, in a process of its own (``chip_smoke.py --dist``,
+   started after phase 19) on a one-rank NCCL group from an in-process
+   store (``launch.mesh.make_host_mesh``, ``make_stream_mesh``).  (a)
+   ``jit_train_step`` of TinyLlama-1.1B in bf16 at full width (remat
+   ``"dots"``, 4 x 1024 tokens) on the (data 1, model 1) mesh takes 4
+   steps from phase 19a's seeded state: its first step held to
+   ``make_train_step``'s by ``hold_step`` (``TRAIN_TOL``), and whether
+   they are bitwise equal printed; with ``grad_axis="data"`` the gradients
+   the step exchanges (recorded at ``ef_int8_allreduce``) equal
+   ``decompress(compress(g))`` of ``optim/compress.py`` bitwise, the int8
+   payload and scales exactly; readings: the step time (median of steps
+   1-3) beside phase 19a's, peak memory.  (b) ``StreamServer`` on the
+   stream mesh, 8 slots, 8 live streams x 4 chunks, one closed and one
+   admitted, the ladder ``SERVE_LADDER``: on the oracle and int8 depth
+   tracks, every stream's state bitwise the ``mesh=None`` run's,
+   ``k_trajectory`` equal, ``rm_fused`` and ``qconv_int8`` launches equal.
+   (c) ``jit_prefill`` and ``jit_decode_step`` of TinyLlama-1.1B bf16 on
+   the mesh with ``attn_backend="pallas"``: 4 x 1024 and 8 greedy tokens,
+   the logits bitwise ``mesh=None``'s, 22 flash launches a prefill.  (d)
+   ``moe_ffn`` with ``moe_impl="ep"`` on the one-rank mesh returns to the
+   sort path (``moe_ffn_ep`` gives ``None`` at ``n_ep == 1``): bitwise
+   ``moe_ffn_sort``'s output at DeepSeek-V2-Lite-16B's width.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
@@ -268,6 +299,7 @@ the card's name and power limit, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -391,6 +423,9 @@ SERVE_TIERS = (8, 24)
 # convolves a frame differently at batch 32 than at 1.  The readings
 # were 1.04e-06 (fp32) and 1.19e-07 (int8) on an H100.
 SERVE_FLOAT_TOL = 1e-5
+# Ticks recorded at each live count for 16c: every one must dispatch the
+# same host ops (host_ops).
+SERVE_PROFILED_TICKS = 4
 # Phase 17: the wire in front of phase 16's server.  Late joiner j is wire
 # stream WIRE_LATE + j; the lossy link's per-frame fault rates (after one
 # round delivered whole); the short Unix-socket run's streams; the crash:
@@ -418,6 +453,9 @@ ZOO_VLM = "llama-3.2-vision-11b"
 ZOO_ENCDEC = "seamless-m4t-large-v2"
 ZOO_NEW = 8
 ZOO_F32_MOE, ZOO_F32_GROUPS, ZOO_F32_ENCDEC = 2, 2, 2
+# Phase 18a: prefill pairs timed with each MoE combine, and the calls
+# timed of each combine alone.
+MOE_PAIRS, MOE_COMBINE_CALLS = 5, 20
 FIG1_PROJ_SCALE = 0.05
 # Phase 19: training.  TinyLlama-1.1B at full width in bf16 (4 x 1024
 # tokens, 8 AdamW steps, 2 of them warm-up for the step time); float32 at
@@ -433,6 +471,13 @@ TRAIN_SMOKE = ("rwkv6-3b", "zamba2-2.7b", "deepseek-v3-671b",
                "llama-3.2-vision-11b", "seamless-m4t-large-v2")
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 16
 TRAIN_TOL = 1e-4
+# Phase 20: the sharded train step takes DIST_STEPS steps (the first held,
+# the rest timed); the stream-sharded server: DIST_SLOTS slots, as many
+# live streams of DIST_CHUNKS chunks, one closed and one admitted at
+# DIST_CHURN_AT; the EP check's tokens.
+DIST_STEPS = 4
+DIST_SLOTS, DIST_CHUNKS, DIST_CHURN_AT = 8, 4, 2
+DIST_EP_TOKENS = (2, 512)
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -754,6 +799,21 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
     return prof.key_averages()
+
+
+def host_ops(torch, fn):
+    """The names of the ops one ``fn()`` dispatches on the host, in order:
+    ``torch.profiler`` on the CPU alone, which records each op as it is
+    called.  Unlike a device trace, which can lose or
+    carry over records at a session's edges (see ``profiled``), it is the
+    same for the same calls.  The CUDA runtime calls it also records
+    (``cudaMalloc``, ``cudaStreamIsCapturing``) are the caching
+    allocator's while its cache fills, not the ops', and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e.name for e in prof.events() if not e.name.startswith("cuda")]
 
 
 def device_launches_per_call(torch, fn, calls=5, tries=3):
@@ -2577,6 +2637,7 @@ def phase_zoo_moe(torch, device, wrappers, card):
           f", greedy tokens "
           f"{int((kern['tokens'] != runs['ref']['tokens']).sum())} of "
           f"{kern['tokens'].numel()} differ")
+    phase_moe_determinism(torch, models["chunked"], params, batch, card)
 
     # The first MoE layer on the prefill's hidden state: MLA on "chunked"
     # against "ref", then the router's loads against the capacity.
@@ -2682,6 +2743,113 @@ def phase_zoo_moe(torch, device, wrappers, card):
           + f" (tol {F32_LOGIT_TOL})")
     del params, fulls, full, state
     torch.cuda.empty_cache()
+
+
+def index_add_combine(torch, y, info, t, cdt):
+    """The MoE combine before PR 27's: a bf16 ``index_add_`` scatter (on
+    the card, atomics in no fixed order); timed beside the fixed-order
+    one in 18a."""
+    tok_by_slot, gate_by_slot, valid = info[:3]
+    e, c, d = y.shape
+    y_flat = y.reshape(e * c, d) * gate_by_slot[:, None].to(cdt)
+    y_flat = torch.where(valid[:, None], y_flat, 0.0)
+    return torch.zeros((t, d), dtype=cdt, device=y.device).index_add_(
+        0, tok_by_slot.long(), y_flat)
+
+
+def phase_moe_determinism(torch, model, params, batch, card):
+    """18a: two more ``"chunked"`` prefills of the same prompts, the
+    logits and the first MoE layer's routing (recorded at ``moe._route``)
+    bitwise equal: the combine adds in a fixed order, with no atomics.
+    Readings: the prefill with the fixed-order combine and with the
+    ``index_add_`` scatter swapped in, in alternating pairs, and each
+    combine alone at the first MoE layer's shapes (CUDA events)."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.models import moe
+    from repro_torch.serve.efm import jit_prefill
+
+    prefill = jit_prefill(model)
+    real_route = moe._route
+    runs = []
+    for _ in range(2):
+        routes = []
+
+        def route(p, x2, cfg):
+            gates, eids, aux = real_route(p, x2, cfg)
+            if not routes:  # the first MoE layer
+                routes.append((gates.clone(), eids.clone()))
+            return gates, eids, aux
+
+        with mock.patch.object(moe, "_route", route):
+            logits, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        runs.append((logits, *routes[0]))
+    (l0, g0, e0), (l1, g1, e1) = runs
+    same = {"logits": torch.equal(l0, l1), "gates": torch.equal(g0, g1),
+            "expert ids": torch.equal(e0, e1)}
+    _need(all(same.values()), f"18a: two runs of one {ZOO_MOE} prefill "
+          f"differ: {same}, max|d logits| "
+          f"{float((l0 - l1).abs().max()):.3g}")
+
+    fixed = moe._combine
+    combines = {"fixed order": fixed,
+                "index_add_": lambda y, info, t, cdt: index_add_combine(
+                    torch, y, info, t, cdt)}
+
+    def timed(name):
+        with mock.patch.object(moe, "_combine", combines[name]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = prefill(params, batch)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, logits
+
+    times = {name: [] for name in combines}
+    scatter = []
+    for i in range(MOE_PAIRS):
+        for name in (list(combines) if i % 2 == 0 else list(combines)[::-1]):
+            ms, logits = timed(name)
+            times[name].append(ms)
+            if name == "index_add_" and len(scatter) < 2:
+                scatter.append(logits)
+    cfg = model.cfg
+    gen = torch.Generator(device=l0.device).manual_seed(SEED)
+    t = batch["tokens"].numel()
+    x2 = torch.randn((t, cfg.d_model), generator=gen, device=l0.device)
+    router = torch.randn((cfg.d_model, cfg.moe_experts), generator=gen,
+                         device=l0.device) / math.sqrt(cfg.d_model)
+    gates, eids, _ = moe._route({"router": router}, x2, cfg)
+    c = moe.moe_capacity(cfg, t)
+    _, info = moe._dispatch(x2, gates, eids, cfg.moe_experts, c)
+    y = torch.randn((cfg.moe_experts, c, cfg.d_model), generator=gen,
+                    device=l0.device).to(cfg.cdt)
+    alone = {}
+    for name, fn in combines.items():
+        fn(y, info, t, cfg.cdt)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(MOE_COMBINE_CALLS):
+            fn(y, info, t, cfg.cdt)
+        end.record()
+        torch.cuda.synchronize()
+        alone[name] = start.elapsed_time(end) / MOE_COMBINE_CALLS
+    print(f"[18a] {ZOO_MOE} bf16 chunked prefill, two runs: logits, the "
+          f"first MoE layer's gates and expert ids bitwise equal "
+          f"({tuple(e0.shape)} assignments); {card}")
+    print(f"[18a] prefill ms in {MOE_PAIRS} alternating pairs: "
+          + "; ".join(f"{k} median {statistics.median(v):.2f} ("
+                      + ", ".join(f"{x:.2f}" for x in v) + ")"
+                      for k, v in times.items())
+          + f" (PR 24's reading with the scatter: 145-155 ms); two "
+          f"index_add_ prefills bitwise equal: "
+          f"{torch.equal(scatter[0], scatter[1])} (a reading); {card}")
+    print(f"[18a] the combine alone at the first MoE layer's shapes "
+          f"(y {tuple(y.shape)} bf16, {t} tokens, top-{cfg.moe_top_k}; CUDA "
+          f"events over {MOE_COMBINE_CALLS} calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items())
+          + f"; {card}")
 
 
 def open_gates(torch, params, gen):
@@ -3288,52 +3456,62 @@ def phase_serve(torch, device, card):
           f"{peak / 2**20:.1f} MiB for the pool, {peak / SERVE_SLOTS / 2**20:.2f}"
           f" MiB a slot")
 
-    # Launches per tick-frame at 8 and at 32 live streams: one rung, the
-    # same step program, only the mask differs.
+    # The tick at 8 and at 32 live streams: one rung, the same step program
+    # (the same host ops), only the mask differs.
     from repro_torch.api import EPICCompressor
     from repro_torch.serve import ServerConfig, StreamServer
 
     srv = StreamServer(EPICCompressor(pipe.EPICConfig(), oracle,
                                       device=device),
                        ServerConfig(capacity=SERVE_SLOTS, chunk_frames=CHUNK))
-    per, names = {}, {}
     feeds = founders + late + founders[:SERVE_SLOTS - SERVE_LIVE - SERVE_CHURN]
     few = SERVE_SLOTS // 4
+
+    # Per live count: a warm tick after the admits, the recorded ticks,
+    # then one traced tick for the device launches.  The submits' uploads
+    # finish before each tick.
+    ops, traced = {}, {}
     for live in (few, SERVE_SLOTS):
         for i in range(len(srv.live_sessions), live):
             srv.admit(i)
-        for t in range(3):
+        for t in range(2 + SERVE_PROFILED_TICKS):
             for i in range(live):
                 srv.submit(i, feeds[i][t])
+            torch.cuda.synchronize(device)
             before = fused.reproject_match_fused.launches
             if t == 0:
                 srv.tick()
                 continue
-            # Two profiled ticks, the larger count kept: a trace can lose
-            # events (see device_launches_per_call), never gain them.  The
-            # submits' non_blocking uploads finish first: one still in
-            # flight when the trace starts is recorded as the tick's.
-            torch.cuda.synchronize(device)
-            _, launches, rows = device_profile(torch, srv.tick)
-            _need(launches > 0, f"{live} live: the profiled tick recorded "
-                  "no device launch")
+            if t <= SERVE_PROFILED_TICKS:
+                ops.setdefault(live, []).append(host_ops(torch, srv.tick))
+            else:
+                _, traced[live], _ = device_profile(torch, srv.tick)
             _need(fused.reproject_match_fused.launches - before == CHUNK,
                   f"{live} live: not one rm_fused launch a frame")
-            if launches / CHUNK > per.get(live, 0):
-                per[live] = launches / CHUNK
-                names[live] = {e.key: e.count for e in rows}
-    diff = {k: (names[few].get(k, 0), names[SERVE_SLOTS].get(k, 0))
-            for k in set(names[few]) | set(names[SERVE_SLOTS])
-            if names[few].get(k, 0) != names[SERVE_SLOTS].get(k, 0)}
-    _need(per[few] == per[SERVE_SLOTS], f"device launches per tick-frame "
-          f"differ with the live count: {per}; device rows whose counts "
-          f"differ (at {few}, at {SERVE_SLOTS}): {diff}")
+    seqs = ops[few] + ops[SERVE_SLOTS]
+    first = collections.Counter(seqs[0])
+    diff = {}
+    for i, q in enumerate(seqs):
+        if q != seqs[0]:
+            c = collections.Counter(q)
+            diff[i] = {k: (first[k], c[k]) for k in first.keys() | c.keys()
+                       if first[k] != c[k]}
+    _need(not diff, f"the host ops of a tick differ ({SERVE_PROFILED_TICKS} "
+          f"ticks at {few} live, then at {SERVE_SLOTS}: "
+          f"{[len(q) for q in seqs]} ops); for each tick that differs from "
+          f"the first, the ops whose counts differ (first tick, that "
+          f"tick): {diff}")
+    _need(all(traced.values()), f"a traced tick recorded no device "
+          f"launch: {traced}")
     _need(srv.step_cache_sizes() == {None: 1},
           f"programs {srv.step_cache_sizes()}")
-    print(f"[16c] {card}: device launches per tick-frame at {few} live "
-          f"streams {per[few]:.1f}, at {SERVE_SLOTS} {per[SERVE_SLOTS]:.1f} (one "
-          f"rm_fused launch a frame for all slots; qconv launches in the int8 "
-          f"run {counted['int8_matmul_pallas/qconv/slots']})")
+    print(f"[16c] {card}: the same {len(seqs[0])} host ops, in order, in "
+          f"each of {SERVE_PROFILED_TICKS} ticks at {few} live streams and at "
+          f"{SERVE_SLOTS}; device launches per "
+          f"tick-frame in a traced tick (a reading) {traced[few] / CHUNK:.1f}"
+          f" at {few}, {traced[SERVE_SLOTS] / CHUNK:.1f} at {SERVE_SLOTS} "
+          f"(one rm_fused launch a frame for all slots; qconv launches in the "
+          f"int8 run {counted['int8_matmul_pallas/qconv/slots']})")
     return dict(counted=counted, flat=flat, int8=int8_run, qmodels=qmodels,
                 founders=founders, late=late, tick_ms=(med * 1e3, p99 * 1e3))
 
@@ -3791,6 +3969,335 @@ def phase_train_process() -> dict:
     _need(out.returncode == 0 and lines,
           f"phase 19 failed (exit {out.returncode})")
     return json.loads(lines[-1])["train"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the mesh and distribution layer on a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+
+def whole(torch, tree):
+    """A tree of DTensors gathered whole (plain tensors kept)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(
+        lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def trees_equal(torch, a, b):
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_dist_train(torch, device, mesh, card):
+    """(a) ``jit_train_step`` at full width on the (1, 1) mesh against
+    ``make_train_step``; the EF-int8 exchange against ``optim/compress``."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import compression, train
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, compress
+
+    cfg = get_config(EFM_ARCH).replace(remat=True, remat_policy="dots",
+                                       param_dtype="bfloat16",
+                                       compute_dtype="bfloat16")
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params, opt = train.init_train_state(model, gen)
+    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, device)
+    shape = ShapeSpec("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    step_fn, specs = train.jit_train_step(model, mesh, adamw.AdamWConfig(),
+                                          shape_spec=shape, warmup_steps=0)
+    plain = train.make_train_step(model, adamw.AdamWConfig(),
+                                  warmup_steps=0)
+    ref = plain(params, opt, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, o, m = step_fn(params, opt, batch, 0)
+    first = (whole(torch, p), adamw.AdamWState(
+        whole(torch, o.step), whole(torch, o.mu), whole(torch, o.nu)), m)
+    errs = hold_step(torch, "20a", ref, first, 3e-4)
+    bitwise = {"loss": torch.equal(ref[2]["loss"], m["loss"]),
+               "params": trees_equal(torch, ref[0], first[0]),
+               "moments": trees_equal(torch, ref[1].mu, first[1].mu)
+               and trees_equal(torch, ref[1].nu, first[1].nu)}
+    del ref, first
+    losses, times = [float(m["loss"])], []
+    for i in range(1, DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, batch, i)
+        losses.append(float(m["loss"]))  # reads the step's end back
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _need(all(math.isfinite(x) for x in losses), f"20a: losses {losses}")
+    med = statistics.median(times)
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    print(f"[20a] {EFM_ARCH} bf16 remat dots, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, jit_train_step on mesh {axes}: "
+          f"first step vs make_train_step {fmt_errs(errs)} (tol {TRAIN_TOL}; "
+          f"params: largest difference over the allowed, pass <= 1); "
+          f"bitwise {bitwise}; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[20a] sharded step time median {med * 1e3:.1f} ms (steps 1-"
+          f"{DIST_STEPS - 1}: {', '.join(f'{t * 1e3:.1f}' for t in times)}),"
+          f" peak memory {peak:.2f} GiB ({card})")
+    del p, o, m
+
+    # The EF-int8 exchange over "data", recorded where the step calls it.
+    seen = {}
+    real = compression.ef_int8_allreduce
+
+    def recording(grads, axis, mesh_=None):
+        out = real(grads, axis, mesh_)
+        seen["in"], seen["out"] = grads, out
+        return out
+
+    ef_step, _ = train.jit_train_step(model, mesh, adamw.AdamWConfig(),
+                                      shape_spec=shape, warmup_steps=0,
+                                      grad_axis="data")
+    plain_ef = train.make_train_step(model, adamw.AdamWConfig(),
+                                     warmup_steps=0, grad_axis="data")
+    with mock.patch.object(compression, "ef_int8_allreduce", recording):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m_ef = ef_step(params, opt, batch, 0)
+        loss_ef = float(m_ef["loss"])
+        t_ef = time.perf_counter() - t0
+        from torch.utils import _pytree as pytree
+
+        grads = seen["in"]
+        q, scales, _ = compress.compress(grads, compress.init(grads))
+        payload = all(
+            torch.equal(a, qq) and torch.equal(b, ss) for (a, b), qq, ss in
+            zip((compression.quantize(g) for g in pytree.tree_leaves(grads)),
+                pytree.tree_leaves(q), pytree.tree_leaves(scales)))
+        rec = compress.decompress(q, scales)
+        exchanged = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(
+            pytree.tree_leaves(seen["out"]), pytree.tree_leaves(rec)))
+        del q, scales, rec, grads, seen["in"], seen["out"]
+        with use_mesh(mesh):
+            _, _, m_plain = plain_ef(params, opt, batch, 0)
+    _need(payload and exchanged, f"20a: the EF-int8 exchange differs from "
+          f"optim/compress: payload and scales {payload}, exchanged "
+          f"gradients {exchanged}")
+    print(f"[20a] grad_axis='data': int8 payload and float32 scales equal "
+          f"optim/compress.compress exactly; the exchanged gradients "
+          f"(gathered in int8 over NCCL) bitwise decompress(compress(g)); "
+          f"loss {loss_ef:.6f} (unsharded step with the exchange "
+          f"{float(m_plain['loss']):.6f}); step {t_ef * 1e3:.1f} ms with the "
+          f"exchange ({card})")
+    return {"step_ms": med * 1e3, "peak_gib": peak, "bitwise": bitwise}
+
+
+def dist_serve_run(torch, device, models, founders, late, mesh, depth):
+    """The phase-20 schedule through ``StreamServer``: every founder
+    streaming, the first closed and the late joiner admitted at tick
+    ``DIST_CHURN_AT``.  Returns the server and its ticks' kernel
+    launches."""
+    from repro_torch.api import EPICCompressor, SensorChunk
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.serve import ServerConfig, StreamServer
+
+    wrappers = kernel_wrappers()
+    srv = StreamServer(
+        EPICCompressor(pipe.EPICConfig(prefilter_k=SERVE_LADDER[0]), models,
+                       device=device),
+        ServerConfig(capacity=DIST_SLOTS, chunk_frames=CHUNK,
+                     k_ladder=SERVE_LADDER), mesh=mesh)
+
+    def chunk(c):
+        return c if depth else SensorChunk(*c[:3])
+
+    for i in range(len(founders)):
+        srv.admit(f"s{i}")
+    for w in wrappers.values():
+        w.launches = 0
+    for t in range(DIST_CHUNKS):
+        if t == DIST_CHURN_AT:
+            srv.close("s0")
+            srv.admit("l0")
+        for i, feed in enumerate(founders):
+            if i or t < DIST_CHURN_AT:
+                srv.submit(f"s{i}", chunk(feed[t]))
+        if t >= DIST_CHURN_AT:
+            srv.submit("l0", chunk(late[0][t - DIST_CHURN_AT]))
+        srv.tick()
+    torch.cuda.synchronize(device)
+    return srv, {k: wrappers[k].launches for k in (
+        "reproject_match_fused", "int8_matmul_pallas/qconv")}
+
+
+def phase_dist_serve(torch, device, card):
+    """(b) The stream-sharded ``StreamServer`` against ``mesh=None``."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.launch.mesh import make_stream_mesh
+
+    mesh = make_stream_mesh(device=device)
+    _, _, models = main_path_inputs(torch, device, CHUNK)
+    founders = serve_feeds(torch, device, DIST_SLOTS, DIST_CHUNKS,
+                           SEED + 3000)
+    late = serve_feeds(torch, device, 1, DIST_CHUNKS - DIST_CHURN_AT,
+                       SEED + 4000)
+    for label, run_models, depth in (
+            ("oracle depth", pipe.EPICModels(), True),
+            ("int8 depth", quantised_models(torch, device, models), False)):
+        local, n_local = dist_serve_run(torch, device, run_models, founders,
+                                        late, None, depth)
+        t0 = time.perf_counter()
+        sharded, n_sharded = dist_serve_run(torch, device, run_models,
+                                            founders, late, mesh, depth)
+        dt = time.perf_counter() - t0
+        for sid in local.live_sessions:
+            _need(trees_equal(torch, sharded.state(sid), local.state(sid))
+                  and list(sharded.telemetry(sid).k_trajectory)
+                  == list(local.telemetry(sid).k_trajectory),
+                  f"20b {label} {sid}: the stream-sharded server differs "
+                  f"from mesh=None")
+        _need(n_sharded == n_local and all(n_sharded.values())
+              if label == "int8 depth" else n_sharded == n_local
+              and n_sharded["reproject_match_fused"] > 0,
+              f"20b {label}: launches {n_sharded} vs mesh=None {n_local}")
+        rungs = sorted({k for sid in local.live_sessions
+                        for k in local.telemetry(sid).k_trajectory})
+        print(f"[20b] {label}: StreamServer on make_stream_mesh() "
+              f"({DIST_SLOTS} slots, {DIST_SLOTS} streams x {DIST_CHUNKS} "
+              f"chunks, 1 closed, 1 admitted, rungs used {rungs}): every "
+              f"live stream's state and k_trajectory bitwise the mesh=None "
+              f"run's; launches {n_sharded} (mesh=None {n_local}); "
+              f"{DIST_CHUNKS} ticks in {dt * 1e3:.1f} ms ({card})")
+
+
+def phase_dist_efm(torch, device, mesh, card):
+    """(c) ``jit_prefill``/``jit_decode_step`` on the mesh against
+    ``mesh=None``, TinyLlama-1.1B bf16 on the flash kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.serve import efm
+
+    cfg = get_config(EFM_ARCH).replace(attn_backend="pallas",
+                                       param_dtype="bfloat16",
+                                       compute_dtype="bfloat16")
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    tokens = zoo_tokens(torch, device, cfg.vocab)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    prefill, _ = efm.jit_prefill(model, mesh, ShapeSpec("p", "prefill", s, b))
+    decode, _ = efm.jit_decode_step(model, mesh,
+                                    ShapeSpec("d", "decode", s + ZOO_NEW, b))
+    plain_prefill, plain_decode = efm.jit_prefill(model), \
+        efm.jit_decode_step(model)
+    flash = kernel_wrappers()["flash_attention_pallas"]
+    plain_prefill(params, batch)  # warm-up
+    flash.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    n_flash = flash.launches
+    ref_logits, ref_cache = plain_prefill(params, batch)
+    _need(torch.equal(logits.full_tensor(), ref_logits),
+          "20c: the sharded prefill's logits differ from mesh=None's")
+    _need(n_flash == cfg.n_layers, f"20c: {n_flash} flash launches in the "
+          f"sharded prefill, not {cfg.n_layers}")
+    state = efm.pad_for_decode(model, whole(torch, cache), ZOO_NEW)
+    ref_state = efm.pad_for_decode(model, ref_cache, ZOO_NEW)
+    tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
+    for i in range(ZOO_NEW):
+        lg, state = decode(params, state, tok, s + i)
+        rlg, ref_state = plain_decode(params, ref_state, tok, s + i)
+        _need(torch.equal(lg.full_tensor(), rlg),
+              f"20c: decode step {i} differs from mesh=None")
+        tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
+        state = whole(torch, state)
+    print(f"[20c] {EFM_ARCH} bf16 attn_backend='pallas' on the mesh: "
+          f"prefill {b}x{s} ({n_flash} flash launches, {t_prefill * 1e3:.2f}"
+          f" ms) and {ZOO_NEW} greedy tokens, logits bitwise mesh=None's "
+          f"({card})")
+
+
+def phase_dist_ep(torch, device, mesh):
+    """(d) ``moe_impl="ep"`` on the one-rank mesh takes the sort path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import moe
+
+    cfg = get_config(ZOO_MOE).replace(moe_impl="ep")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = moe.init_moe(gen, cfg, device=device)
+    x = (0.3 * torch.randn((*DIST_EP_TOKENS, cfg.d_model), generator=gen,
+                           device=device)).to(cfg.cdt)
+    with torch.no_grad(), use_mesh(mesh):
+        none = moe.moe_ffn_ep(p, x, cfg)
+        y, aux = moe.moe_ffn(p, x, cfg)
+        ys, auxs = moe.moe_ffn_sort(p, x, cfg)
+    _need(none is None and torch.equal(y, ys) and torch.equal(aux, auxs),
+          "20d: moe_impl='ep' on one rank differs from the sort path")
+    print(f"[20d] {ZOO_MOE} moe_ffn, moe_impl='ep' on the one-rank mesh: "
+          f"moe_ffn_ep returns None (n_ep 1), output bitwise moe_ffn_sort's "
+          f"at {tuple(x.shape)}")
+
+
+def dist_main() -> int:
+    """``chip_smoke.py --dist``: phase 20; prints its results as one JSON
+    line, last."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    set_numerics(torch)
+    card = card_line()
+    t0 = time.perf_counter()
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device=device)
+    _need(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"20: the group is {dist.get_backend()} of "
+          f"{dist.get_world_size()} ranks")
+    try:
+        out = phase_dist_train(torch, device, mesh, card)
+        torch.cuda.empty_cache()
+        phase_dist_serve(torch, device, card)
+        torch.cuda.empty_cache()
+        phase_dist_efm(torch, device, mesh, card)
+        torch.cuda.empty_cache()
+        phase_dist_ep(torch, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s ({card})")
+    print(json.dumps({"dist": out}))
+    return 0
+
+
+def phase_dist_process(train: dict) -> dict:
+    """Phase 20 in a process of its own (``chip_smoke.py --dist``); its
+    lines pass through, its last line is its results as JSON."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--dist"], stdout=subprocess.PIPE, text=True,
+                         timeout=400)
+    lines = out.stdout.splitlines()
+    print("\n".join(lines[:-1] if out.returncode == 0 else lines),
+          flush=True)
+    _need(out.returncode == 0 and lines,
+          f"phase 20 failed (exit {out.returncode})")
+    res = json.loads(lines[-1])["dist"]
+    print(f"[20a] sharded step median {res['step_ms']:.1f} ms beside phase "
+          f"19a's make_train_step {train['step_ms']:.1f} ms "
+          f"({res['step_ms'] / train['step_ms']:.3f}x); peak memory "
+          f"{res['peak_gib']:.2f} GiB beside {train['peak_gib']:.2f} GiB")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4661,7 +5168,7 @@ def main() -> int:
                              card).items():
         launches[name] += n
     torch.cuda.empty_cache()  # the card's memory to phase 19's process
-    phase_train_process()
+    phase_dist_process(phase_train_process())
     serve = phase_serve_process()
     errs.update(serve["errs"])
     times.update(serve["times"])
@@ -4689,4 +5196,6 @@ if __name__ == "__main__":
         sys.exit(wire_server_main(*sys.argv[2:6]))
     if sys.argv[1:] == ["--train"]:
         sys.exit(train_main())
+    if sys.argv[1:] == ["--dist"]:
+        sys.exit(dist_main())
     sys.exit(serve_main() if sys.argv[1:] == ["--serve"] else main())

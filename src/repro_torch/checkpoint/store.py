@@ -9,6 +9,13 @@ fsynced — a crashed save can never shadow the previous good step
 (restore scans for the newest *complete* directory, identified by the
 manifest written last).
 
+A sharded tree (DTensor leaves, one process per device) is gathered
+whole on every rank and written once, by rank 0, the others waiting at a
+barrier; so it restores onto any mesh, or none, as the reference's does.
+``restore(..., shardings=)`` places the leaves onto target
+``NamedSharding``s (``launch/sharding.py``); a DTensor leaf of ``like``
+comes back placed as it is.
+
 Leaves are saved as full arrays under the reference's keys: the
 ``jax.tree_util.keystr`` of each path entry joined by ``/`` — ``['k']``
 for a dict key (dicts flatten in sorted key order, as in JAX), ``[0]``
@@ -121,6 +128,30 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, name
 
 
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded(tree: Any) -> bool:
+    return any(_is_dtensor(x) for _, x in _flatten_with_paths(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes a sharded tree's files (rank 0)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save(
     directory: str,
     step: int,
@@ -129,7 +160,22 @@ def save(
     n_shards: int = 4,
     extra_meta: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Atomic synchronous save. Returns the final step directory."""
+    """Atomic synchronous save. Returns the final step directory.
+
+    A sharded tree is gathered whole on every rank (a collective call),
+    written by rank 0 and waited for at a barrier by every rank."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _sharded(tree):
+        tree = host_snapshot(tree)
+        if _writer():
+            _write(directory, step, tree, n_shards, extra_meta)
+        _barrier()
+        return final
+    return _write(directory, step, tree, n_shards, extra_meta)
+
+
+def _write(directory: str, step: int, tree: Any, n_shards: int,
+           extra_meta: Optional[Dict[str, Any]]) -> str:
     flat = _flatten_with_paths(tree)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -174,10 +220,13 @@ def host_snapshot(tree: Any) -> Any:
     """A host copy of every leaf of ``tree``, consistent at the call:
     card tensors go through pinned buffers with one host sync for the
     whole tree, CPU tensors and arrays are copied (a later in-place write
-    to the live tree cannot reach the snapshot), scalars kept."""
+    to the live tree cannot reach the snapshot), scalars kept.  DTensor
+    leaves are gathered whole first (a collective call on every rank)."""
     leaves = [leaf for _, leaf in _flatten_with_paths(tree)]
     out, on_card = [], []
     for x in leaves:
+        if _is_dtensor(x):
+            x = x.full_tensor()
         if isinstance(x, torch.Tensor):
             if x.device.type == "cpu":
                 out.append(x.detach().clone())
@@ -206,20 +255,32 @@ class AsyncSaver:
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
+        self._barrier = False
         self.last_path: Optional[str] = None
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:  # a sharded save: every rank waits for rank 0
+            self._barrier = False
+            _barrier()
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise exc
 
     def save(self, directory: str, step: int, tree: Any, **kw):
-        """Snapshot ``tree`` to the host now; write it in the background."""
+        """Snapshot ``tree`` to the host now; write it in the background.
+        A sharded tree is gathered on every rank and written by rank 0;
+        :meth:`wait` holds every rank until it is written."""
         self.wait()
-        self.save_host(directory, step, host_snapshot(tree), **kw)
+        sharded = _sharded(tree)
+        snapshot = host_snapshot(tree)
+        if sharded:
+            self._barrier = True
+            if not _writer():
+                return
+        self.save_host(directory, step, snapshot, **kw)
 
     def save_host(self, directory: str, step: int, host_tree: Any, **kw):
         """Write a host tree the caller has already taken (with
@@ -286,13 +347,17 @@ def restore(
     *,
     step: Optional[int] = None,
     device=None,
+    shardings: Any = None,
 ) -> Tuple[Any, int]:
     """Load into the structure of ``like``.
 
     A tensor or :class:`LeafSpec` leaf of ``like`` comes back as a tensor
     on ``device`` (``None``: that leaf's own device), a numpy leaf as a
     numpy array (a bfloat16 one as a CPU tensor), a Python scalar as a
-    Python scalar.
+    Python scalar.  ``shardings`` (a ``NamedSharding`` tree like ``like``,
+    or one for every tensor leaf) places each tensor leaf onto its
+    mesh: every rank keeps its block of the whole array it read.  A
+    DTensor leaf of ``like`` comes back placed as it is.
 
     With ``step=None`` the newest complete checkpoint is resolved
     *once* and loaded; if it turns out damaged (a shard truncated or
@@ -301,15 +366,20 @@ def restore(
     next-newest complete step rather than failing on debris.  An
     explicit ``step`` never falls back.
     """
+    def load(s):
+        if shardings is None:
+            return _load_step(directory, s, like, device)
+        return _load_step(directory, s, like, device, shardings)
+
     if step is not None:
-        return _load_step(directory, step, like, device), step
+        return load(step), step
     steps = complete_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no complete checkpoint in {directory}")
     last_err: Optional[BaseException] = None
     for s in reversed(steps):
         try:
-            return _load_step(directory, s, like, device), s
+            return load(s), s
         except _DAMAGED_STEP_ERRORS as e:
             last_err = e
     raise last_err  # every complete-looking step failed to load
@@ -324,7 +394,37 @@ def _as_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr).to(want)
 
 
-def _load_step(directory: str, step: int, like: Any, device) -> Any:
+def _targets(like: Any, shardings: Any) -> List[Any]:
+    """One target ``NamedSharding`` (or ``None``) per leaf of ``like``."""
+    from repro_torch.launch.sharding import NamedSharding
+
+    n = len(_flatten_with_paths(like))
+    if shardings is None:
+        return [None] * n
+    if isinstance(shardings, NamedSharding):
+        return [shardings] * n
+    return [s for _, s in _flatten_with_paths(shardings)]
+
+
+def _place(t: torch.Tensor, leaf: Any, target: Any) -> torch.Tensor:
+    """The whole array ``t`` as a DTensor: on ``target``, or (``None``)
+    placed as the DTensor ``leaf`` of ``like`` is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import local_block
+
+    if target is None:
+        mesh, placements = leaf.device_mesh, tuple(leaf.placements)
+    else:
+        mesh, placements = target.mesh, target.placements
+    t = t.to(mesh.device_type)
+    return DTensor.from_local(
+        local_block(t, mesh, placements).contiguous(), mesh, placements,
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def _load_step(directory: str, step: int, like: Any, device,
+               shardings: Any = None) -> Any:
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
@@ -332,8 +432,9 @@ def _load_step(directory: str, step: int, like: Any, device) -> Any:
         si: np.load(os.path.join(d, f"shard_{si}.npz"))
         for si in range(manifest["n_shards"])
     }
+    targets = _targets(like, shardings)
     leaves = []
-    for key, leaf in _flatten_with_paths(like):
+    for (key, leaf), target in zip(_flatten_with_paths(like), targets):
         ent = manifest["leaves"].get(key)
         if ent is None:
             raise KeyError(f"checkpoint missing leaf {key}")
@@ -347,6 +448,9 @@ def _load_step(directory: str, step: int, like: Any, device) -> Any:
             ent["dtype"] == "bfloat16"  # numpy has no bfloat16 of its own
         ):
             t = _as_tensor(arr, ent["dtype"])
+            if target is not None or _is_dtensor(leaf):
+                leaves.append(_place(t, leaf, target))
+                continue
             home = getattr(leaf, "device", torch.device("cpu"))
             leaves.append(t.to(home if device is None else device))
         elif not hasattr(leaf, "shape"):  # python scalar leaf round-trips

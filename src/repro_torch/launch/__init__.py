@@ -1,3 +1,6 @@
-"""Launch layer: the train step.  The mesh, sharding, dry-run and serve
-shims of ``repro/launch`` need a device mesh (``ROADMAP.md`` Queue 1
-item 6)."""
+"""Launch layer: device meshes (``mesh``), the sharding rules
+(``sharding``), the EF-int8 gradient exchange (``compression``), the train
+step and its sharded form (``train``), the training driver (``train_efm``)
+and the serving shim (``serve``).  The reference's dry-run and HLO parser
+(``launch/dryrun.py``, ``launch/hloparse.py``) are not ported yet
+(``ROADMAP.md`` Queue 1 item 6)."""

@@ -15,9 +15,9 @@ with eps 1e-5, the tanh GeLU.
 Serving decodes the decoder one token at a time against (a) the
 self-attention KV cache and (b) the cross K/V precomputed from the
 encoder output.  ``loss_fn`` is the training loss; ``cfg.remat``
-recomputes each encoder and decoder block in the backward pass.  Left
-out: the decode-sharding hints over a mesh (``ROADMAP.md`` Queue 1 item
-6).
+recomputes each encoder and decoder block in the backward pass.  The
+cross-attention decode takes the reference's decode-sharding hints inside
+``layers.cross_attention_decode``.
 """
 
 from __future__ import annotations

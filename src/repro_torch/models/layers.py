@@ -14,8 +14,13 @@ Port of ``repro/models/layers.py``.  Conventions (as in the reference):
 Training: :func:`next_token_loss` and :func:`remat_wrap`
 (``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
 
-Left out: the mesh helpers of sharded decode (``ambient_mesh_axes``,
-``decode_seq_shard``; ``ROADMAP.md`` Queue 1 item 6).
+Sharded decode: :func:`ambient_mesh_axes` reads the ambient mesh
+(``launch.mesh.use_mesh``), :func:`decode_seq_shard` makes the
+reference's flash-decoding decision on it, and :func:`_wsc` places a
+DTensor by a spec.  The model code runs on plain tensors on each rank, so
+the decode-layout hints (in :func:`attention_decode` and
+:func:`cross_attention_decode`, which the VLM and the encoder-decoder
+share) leave them as they are.
 """
 
 from __future__ import annotations
@@ -180,6 +185,64 @@ def remat_wrap(cfg, fn):
                 context_fn=partial(create_selective_checkpoint_contexts,
                                    _DOTS_SAVEABLE))
     return run
+
+
+# ---------------------------------------------------------------------------
+# Decode-attention sharding (flash-decoding layout)
+# ---------------------------------------------------------------------------
+
+
+def ambient_mesh_axes() -> Dict[str, int]:
+    """Axis sizes of the ambient mesh (``launch.mesh.use_mesh``); {} when
+    none."""
+    from repro_torch.launch import mesh as M
+
+    amb = M.current()
+    return {} if amb is None else M.mesh_shape(amb.mesh)
+
+
+def decode_seq_shard(batch: int, n_kv_heads: int, skv: int):
+    """The decode-attention layout on the ambient mesh, as the reference
+    decides it: when kv-heads don't divide the model axis the serve cache
+    is sharded on its seq dim (``launch/sharding.cache_spec_for``), and
+    the logits stay seq-sharded (the flash-decoding partitioning).
+    Returns ``(batch_axes | None,)`` when that layout applies, else
+    ``None``."""
+    ax = ambient_mesh_axes()
+    model = ax.get("model", 1)
+    if model <= 1 or n_kv_heads % model == 0 or skv % model != 0:
+        return None
+    dps = [a for a in ("pod", "data") if a in ax]
+    for start in range(len(dps)):
+        use = tuple(dps[start:])
+        if batch % math.prod(ax[a] for a in use) == 0:
+            return (use,)
+    return (None,)
+
+
+def _wsc(x: Tensor, spec) -> Tensor:
+    """A DTensor redistributed to ``spec`` on its mesh; a plain tensor (the
+    model code's, one rank's rows) unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.sharding import P, to_placements
+
+    return x.redistribute(x.device_mesh, to_placements(P(*spec),
+                                                       x.device_mesh))
+
+
+def _decode_hints(kr: Tensor, vr: Tensor, logits_fn, batch: int,
+                  n_kv_heads: int):
+    """The reference's decode-layout hints around ``logits_fn(kr)``."""
+    seqsh = decode_seq_shard(batch, n_kv_heads, kr.shape[2])
+    if seqsh is None:
+        return kr, vr, logits_fn(kr)
+    (bax,) = seqsh
+    kr = _wsc(kr, (bax, None, "model", None))
+    vr = _wsc(vr, (bax, None, "model", None))
+    return kr, vr, _wsc(logits_fn(kr), (bax, None, None, "model"))
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +417,9 @@ def attention_decode(
     group = n_heads // n_kv_heads
     kr = _repeat_kv(ck.to(compute_dtype), group)
     vr = _repeat_kv(cv.to(compute_dtype), group)
-    logits = torch.matmul(q, kr.transpose(-1, -2)).float()
-    logits = logits / math.sqrt(head_dim)
+    kr, vr, logits = _decode_hints(
+        kr, vr, lambda kr: torch.matmul(q, kr.transpose(-1, -2)).float()
+        / math.sqrt(head_dim), x.shape[0], n_kv_heads)
     kpos = torch.arange(skv, device=x.device)
     keep = kpos <= pos
     if window is not None:
@@ -388,8 +452,9 @@ def cross_attention_decode(p: Params, x: Tensor, xk: Tensor, xv: Tensor,
     group = n_heads // xk.shape[1]
     kr = _repeat_kv(xk.to(compute_dtype), group)
     vr = _repeat_kv(xv.to(compute_dtype), group)
-    logits = torch.matmul(q, kr.transpose(-1, -2)).float()
-    logits = logits / math.sqrt(q.shape[-1])
+    kr, vr, logits = _decode_hints(
+        kr, vr, lambda kr: torch.matmul(q, kr.transpose(-1, -2)).float()
+        / math.sqrt(q.shape[-1]), b, xk.shape[1])
     probs = torch.softmax(logits, dim=-1).to(compute_dtype)
     o = torch.matmul(probs, vr).transpose(1, 2).reshape(b, 1, -1)
     return linear(p["wo"], o, compute_dtype)

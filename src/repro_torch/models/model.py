@@ -26,8 +26,13 @@ prompt's length, from which decode starts at position 0.  ``loss_fn``
 runs the reference's training forms (attention on ``cfg.attn_backend``,
 ``"ref"`` by default; the RWKV6 scan on ``"ref"``, the SSD on
 ``"chunked"``); the CUDA kernels have no backward and their wrappers
-raise under grad.  The reference's shape specs (sharded lowering) are not
-ported yet (``ROADMAP.md`` Queue 1 item 6).
+raise under grad.
+
+Shape specs, the reference's ``jax.eval_shape`` trees, are tensors on the
+``meta`` device (shape and dtype, no storage): ``param_spec()`` (the
+family's ``init``), ``serve_spec(batch, max_seq)`` (``init_serve``),
+``token_spec(batch)`` and ``batch_spec(shape)``.  The sharding rules
+(``launch/sharding.py``) read them.
 """
 
 from __future__ import annotations
@@ -56,6 +61,36 @@ class Model:
     prefill: Callable[[Params, Dict[str, Tensor]], Any]
     init_serve: Callable[[int, int], Any]
     decode_step: Callable[[Params, Any, Tensor, int], Any]
+
+    def _meta(self) -> "Model":
+        return build_model(self.cfg, device="meta")
+
+    def param_spec(self) -> Params:
+        """The parameters' shapes and dtypes (meta tensors, no storage)."""
+        return self._meta().init(None)
+
+    def serve_spec(self, batch: int, max_seq: int) -> Any:
+        return self._meta().init_serve(batch, max_seq)
+
+    def token_spec(self, batch: int) -> Tensor:
+        return torch.empty((batch, 1), dtype=torch.int32, device="meta")
+
+    def batch_spec(self, shape) -> Dict[str, Tensor]:
+        """Train/prefill inputs of a ``ShapeSpec``, as meta tensors."""
+        b, s = shape.global_batch, shape.seq_len
+        cfg = self.cfg
+
+        def meta(*dims, dtype=torch.float32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        out = {"tokens": meta(b, s, dtype=torch.int32)}
+        if cfg.family == "vlm":
+            out["img_embed"] = meta(b, cfg.img_seq, cfg.d_model)
+        if cfg.family == "encdec":
+            from repro_torch.models.encdec import src_len
+
+            out["src_embed"] = meta(b, src_len(cfg, s), cfg.d_model)
+        return out
 
 
 def build_model(cfg: ModelConfig, device=None, *,

@@ -11,8 +11,15 @@ dispatch, as in the reference:
   4. one gather builds the (E, C, D) expert inputs, three batched
      products against the stacked per-expert weights (E, D, F) run all
      experts at once (``torch.bmm``: the reference runs them as einsums,
-     outside any Pallas kernel), one scatter-add applies the gates back
-     to (T, D).
+     outside any Pallas kernel), and the gated outputs go back to (T, D).
+
+The way back (:func:`_combine`) is deterministic: each token folds its
+own kept contributions in ascending slot order from zeros in float32 and
+rounds to the compute dtype once.  That is what ``index_add_`` computes
+on the CPU (it adds in index order, a bf16 tensor in float32), so the
+result is bitwise the scatter-add's there, and two runs on the card agree
+bitwise (an ``index_add_`` on CUDA adds with atomics, in no fixed
+order).
 
 DeepSeek specifics: ``moe_shared`` always-on shared experts (a dense
 SwiGLU of width ``shared * moe_d_ff``) are added to the routed output;
@@ -20,11 +27,13 @@ the gates are the softmax over the selected top-k renormalised (V2
 convention); a Switch-style load-balance term is returned beside the
 output.
 
-Left out: the expert-parallel dispatch (``moe_ffn_ep``,
-``_quant_all_to_all``, ``_shard_map``), which needs a device mesh
-(``ROADMAP.md`` Queue 1 item 6).  Without a mesh the reference's
-``moe_ffn_ep`` returns ``None`` and ``moe_ffn`` takes the sort path; the
-port has no mesh, so ``moe_impl="ep"`` takes it too.
+Expert parallelism (:func:`moe_ffn_ep`, ``moe_impl="ep"``): under an
+ambient mesh (``launch.mesh.use_mesh``) each rank routes and dispatches
+its own tokens, and the (E, C_loc, D) buffers cross the EP group by
+all-to-all (int8 with per-row scales both ways when ``moe_a2a_quant``:
+:func:`_quant_all_to_all`), so a rank runs only its own experts.  With
+no ambient mesh, a one-rank EP group, or E or S not divisible by it,
+``moe_ffn`` takes the sort path, as the reference's does.
 """
 
 from __future__ import annotations
@@ -125,18 +134,31 @@ def _dispatch(x2: Tensor, gates: Tensor, eids: Tensor, e: int, c: int):
         tok_by_slot[:e * c], gate_by_slot[:e * c], valid[:e * c])
     xg = x2[tok_by_slot.long()].reshape(e, c, d) * valid.reshape(
         e, c, 1).to(x2.dtype)
-    return xg, (tok_by_slot, gate_by_slot, valid)
+    # Each token's slots, ascending (the sentinel E*C, a dropped
+    # assignment, sorts last): the order _combine adds them in.
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    slots_by_token = torch.sort(slot_of.reshape(t, k), dim=1).values
+    return xg, (tok_by_slot, gate_by_slot, valid, slots_by_token)
 
 
 def _combine(y: Tensor, info, t: int, cdt) -> Tensor:
-    """Gate-weighted scatter-add of the expert outputs back to (T, D), in
-    ``cdt`` and in slot order."""
-    tok_by_slot, gate_by_slot, valid = info
+    """Gate-weighted sum of the expert outputs back to (T, D), in ``cdt``.
+
+    Token ``t`` adds its kept slots' gated rows in ascending slot order to
+    zeros in float32, rounded to ``cdt`` once: ``index_add_``'s result on
+    the CPU, with no atomics (see the module docstring)."""
+    _, gate_by_slot, _, slots_by_token = info
     e, c, d = y.shape
+    # Only kept slots are read; row E*C is the dropped assignments' zero
+    # row.
     y_flat = y.reshape(e * c, d) * gate_by_slot[:, None].to(cdt)
-    y_flat = torch.where(valid[:, None], y_flat, 0.0)
-    return torch.zeros((t, d), dtype=cdt, device=y.device).index_add_(
-        0, tok_by_slot.long(), y_flat)
+    y_flat = torch.cat([y_flat, y_flat.new_zeros((1, d))])
+    rows = y_flat[slots_by_token]  # (T, K, D), one gather
+    out = torch.zeros((t, d), dtype=torch.float32, device=y.device)
+    for j in range(rows.shape[1]):
+        out.add_(rows[:, j])  # in float32: bf16 rows convert exactly
+    return out.to(cdt)
 
 
 def _expert_ffn(p: Params, xg: Tensor, cdt) -> Tensor:
@@ -148,8 +170,17 @@ def _expert_ffn(p: Params, xg: Tensor, cdt) -> Tensor:
 
 
 def moe_ffn(p: Params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """Routed MoE over (B, S, D).  Both ``moe_impl``s take the sort path
-    (``"ep"`` needs a mesh: see the module docstring)."""
+    """Routed MoE over (B, S, D). Dispatches on ``cfg.moe_impl``.
+
+    Expert stacks may come as this rank's EP shard (fewer than E rows: the
+    sharded train step passes them so); if the EP path does not apply,
+    they are gathered over the EP group for the sort path."""
+    if cfg.moe_impl == "ep":
+        out = moe_ffn_ep(p, x, cfg)
+        if out is not None:
+            return out
+    if p["gate_w"].shape[0] != cfg.moe_experts:
+        p = _gather_experts(p, cfg)
     return moe_ffn_sort(p, x, cfg)
 
 
@@ -170,3 +201,185 @@ def moe_ffn_sort(p: Params, x: Tensor,
     if cfg.moe_shared:
         out = out + L.mlp(p["shared"], x2, cdt)
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch (all-to-all over the EP group)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_rows(v: Tensor):
+    """Symmetric int8 per row (last dim): ``(q8, scale float32)``; the
+    scale ``max|v| / 127 + 1e-12`` in ``v``'s dtype, as the reference's."""
+    scale = torch.amax(torch.abs(v), dim=-1, keepdim=True) / torch.tensor(
+        127.0, dtype=v.dtype, device=v.device) + 1e-12
+    q8 = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+    return q8, scale.to(torch.float32)
+
+
+def _quant_exchange(v: Tensor, group, split_axis: int,
+                    concat_axis: int) -> Tensor:
+    from repro_torch.launch.collectives import tiled_all_to_all
+
+    q8, s = _quantize_rows(v)
+    return (tiled_all_to_all(q8, group, split_axis, concat_axis).to(v.dtype)
+            * tiled_all_to_all(s, group, split_axis, concat_axis)).to(v.dtype)
+
+
+class _QuantAllToAll(torch.autograd.Function):
+    """int8 all-to-all with float32 per-row scales both ways: the
+    cotangent is quantised and exchanged back the same way (the
+    reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, v, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _quant_exchange(v, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _quant_exchange(g, group, concat_axis, split_axis), None, \
+            None, None
+
+
+def _quant_all_to_all(x: Tensor, group, split_axis: int,
+                      concat_axis: int) -> Tensor:
+    """int8-quantised all-to-all over ``group`` (DeepSeek-V3's fp8
+    dispatch, in int8): per-row scales ride along as float32."""
+    return _QuantAllToAll.apply(x, group, split_axis, concat_axis)
+
+
+def _ep_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    return ("data", "model") if cfg.ep_axes == "dp_model" else ("model",)
+
+
+def _gather_experts(p: Params, cfg: ModelConfig) -> Params:
+    """``p`` with its expert stacks gathered whole over the ambient EP
+    group (they came as this rank's shard)."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import mesh as M
+
+    amb = M.current()
+    if amb is None:
+        raise ValueError(
+            f"expert stacks of {p['gate_w'].shape[0]} rows (of "
+            f"{cfg.moe_experts}) need the ambient mesh they were sharded on")
+    group = M.axis_group(amb.mesh, _ep_names(cfg))
+    return {**p, **{k: C.all_gather(p[k], group, 0)
+                    for k in ("gate_w", "up_w", "down_w")}}
+
+
+def _token_layout(ax, names, b: int, cfg: ModelConfig, ep_names):
+    """The reference's two token layouts inside the EP region: ``(batch
+    axes, seq axes)``, or ``None`` when no layout covers the EP axes."""
+    all_axes = [n for n in names if n in ("pod", "data", "model")]
+    batch_axes = seq_axes = None
+    if cfg.shard_strategy in ("dp", "fsdp"):
+        # layout 1: batch sharded over a prefix covering every EP axis
+        for start in range(len(all_axes)):
+            use = tuple(all_axes[start:])
+            if b % math.prod(ax[n] for n in use) == 0 and all(
+                    n in use for n in ep_names):
+                batch_axes = use
+                break
+    if batch_axes is None:
+        # layout 2: batch over the non-model DP axes, seq over "model"
+        dp_names = tuple(n for n in ("pod", "data") if n in ax)
+        for start in range(len(dp_names) + 1):
+            use = dp_names[start:]
+            if b % (math.prod(ax[n] for n in use) if use else 1) == 0:
+                batch_axes = tuple(use) or None
+                break
+        seq_axes = ("model",)
+        covered = set(batch_axes or ()) | set(seq_axes)
+        if not set(ep_names) <= covered:
+            return None
+    return tuple(batch_axes or ()), tuple(seq_axes or ()), all_axes
+
+
+def moe_ffn_ep(p: Params, x: Tensor, cfg: ModelConfig):
+    """EP MoE: local routing + all-to-all token exchange (DeepSeek-style).
+
+    ``x`` is this rank's rows of the activations, split over the ambient
+    mesh's ``batch_axes`` (the sharded steps split the batch so).  Inside
+    the region every rank owns a disjoint token block, laid out as the
+    reference's ``shard_map`` lays it: layout 1 (``"dp"``/``"fsdp"``) the
+    batch over a DP prefix covering every EP axis; layout 2 the batch over
+    the pure-DP axes and the sequence over ``"model"`` (each rank takes its
+    slice, and the output is all-gathered back along the sequence).  Only
+    the capacity-bounded (E, C_loc, D) dispatch buffers cross the EP
+    group; each rank runs its E / n_ep experts, from its shard of the
+    expert stacks or its block of whole ones.  ``aux`` is averaged over
+    the token axes.  The reference's ``shard_map`` region (and its
+    ``_shard_map`` shim) is this explicit local slice and gather.
+    Returns ``None`` where the reference's does: no
+    ambient mesh, an EP axis missing, ``n_ep == 1``, E or S not divisible
+    by it, or no layout covering the EP axes.
+    """
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import mesh as M
+
+    amb = M.current()
+    if amb is None:
+        return None
+    mesh = amb.mesh
+    ax = M.mesh_shape(mesh)
+    names = M.mesh_axes(mesh)
+    ep_names = _ep_names(cfg)
+    if any(n not in ax for n in ep_names):
+        return None
+    n_ep = math.prod(ax[n] for n in ep_names)
+    e = cfg.moe_experts
+    b_loc, s, d = x.shape
+    b = b_loc * M.axes_size(mesh, amb.batch_axes)
+    if n_ep == 1 or e % n_ep != 0 or s % n_ep != 0:
+        return None
+    layout = _token_layout(ax, names, b, cfg, ep_names)
+    if layout is None:
+        return None
+    batch_axes, seq_axes, all_axes = layout
+    if batch_axes != amb.batch_axes:
+        raise ValueError(
+            f"moe_ffn_ep: this rank's rows are split over {amb.batch_axes}, "
+            f"but the EP region lays the batch over {batch_axes}")
+    pod_extra = tuple(n for n in all_axes if n not in batch_axes
+                      and n not in seq_axes and n not in ep_names)
+    e_loc = e // n_ep
+    cdt = cfg.cdt
+    ep_group = M.axis_group(mesh, ep_names)
+
+    if seq_axes:
+        m, n_m = mesh.get_local_rank("model"), ax["model"]
+        x_loc = x.narrow(1, m * (s // n_m), s // n_m)
+    else:
+        x_loc = x
+    bl, sl, _ = x_loc.shape
+    t = bl * sl
+    c_loc = max(4, -(-int(t * cfg.moe_top_k / e
+                          * cfg.moe_capacity_factor) // 4) * 4)
+    x2 = x_loc.reshape(t, d)
+    gates, eids, aux = _route({"router": p["router"]}, x2, cfg)
+    xg, info = _dispatch(x2, gates, eids, e, c_loc)  # (E, C_loc, D)
+    # Peer i owns expert rows [i*e_loc, (i+1)*e_loc): send it its slices,
+    # receive everyone's slices for this rank's experts.
+    exchange = _quant_all_to_all if cfg.moe_a2a_quant else C.all_to_all
+    xr = exchange(xg, ep_group, 0, 1)  # (e_loc, n_ep*C_loc, D)
+    if p["gate_w"].shape[0] == e:
+        lo = M.axis_index(mesh, ep_names) * e_loc
+        experts = {k: p[k].narrow(0, lo, e_loc)
+                   for k in ("gate_w", "up_w", "down_w")}
+    else:
+        experts = p
+    y = _expert_ffn(experts, xr, cdt)  # (e_loc, n_ep*C_loc, D)
+    y = exchange(y, ep_group, 1, 0)  # (E, C_loc, D), as dispatched
+    out = _combine(y.to(cdt), info, t, cdt)
+    if cfg.moe_shared:
+        out = out + L.mlp(p["shared"], x2, cdt)
+    mean_axes = tuple(dict.fromkeys(batch_axes + seq_axes + pod_extra))
+    if mean_axes:
+        aux = C.all_reduce_mean(aux, M.axis_group(mesh, mean_axes))
+    out = out.reshape(bl, sl, d).to(x.dtype)
+    if seq_axes:
+        out = C.all_gather(out, mesh.get_group("model"), 1)
+    return out, aux

@@ -23,8 +23,8 @@ Self-attention runs on ``cfg.attn_backend`` through
 ``"pallas"``); cross-attention always takes the masked path, as in the
 reference.  ``loss_fn`` is the training loss; ``cfg.remat`` recomputes
 each self block in the backward pass (the cross blocks are kept, as in
-the reference).  Left out: the decode-sharding hints over a mesh
-(``ROADMAP.md`` Queue 1 item 6).
+the reference).  The cross-attention decode takes the reference's
+decode-sharding hints inside ``layers.cross_attention_decode``.
 """
 
 from __future__ import annotations

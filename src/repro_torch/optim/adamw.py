@@ -48,10 +48,12 @@ def global_norm(tree: Any) -> Tensor:
                           for g in pytree.tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        norm: Optional[Tensor] = None) -> Tuple[Any, Tensor]:
     """``grads`` scaled to a global norm of at most ``max_norm``, and the
-    norm before scaling."""
-    norm = global_norm(grads)
+    norm before scaling (``norm``: given, for gradient shards)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return pytree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -62,12 +64,14 @@ def update(
     params: Any,
     cfg: AdamWConfig,
     lr: Optional[Tensor] = None,  # overrides cfg.lr (schedules)
+    norm: Optional[Tensor] = None,  # the global norm, when ``grads`` are
+    # this rank's shards of a sharded tree
 ) -> Tuple[Any, AdamWState, Tensor]:
     """Returns (new_params, new_state, pre-clip grad norm)."""
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
     step = state.step + 1
     t = step.float()
     lr_t = cfg.lr if lr is None else lr

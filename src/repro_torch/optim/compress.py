@@ -11,9 +11,8 @@ payload is what an all-reduce would carry; ``decompress`` restores
 float32.  ``torch.round`` rounds half to even, as ``jnp.round`` does, and
 the scale divides by a float32 tensor (CUDA PyTorch takes a division by
 a Python float as a product with its reciprocal), so payload and scales
-are the reference's exactly.  The all-reduce that carries them
-(``launch/compression.py``) needs a process mesh (``ROADMAP.md`` Queue 1
-item 6).
+are the reference's exactly.  ``launch/compression.py`` carries them
+over a mesh axis (an all-gather of the payload and the scales).
 """
 
 from __future__ import annotations

@@ -138,6 +138,11 @@ def _decode_key(enc: Any) -> Hashable:
 
 
 def _tier_pools(server: StreamServer) -> List[Any]:
+    if getattr(server.pool, "mesh", None) is not None:
+        raise NotImplementedError(
+            "serve checkpoints of a stream-sharded server are not ported: "
+            "each rank holds only its own slots (ROADMAP.md, Queue 1 "
+            "item 6)")
     return list(server.pool.tiers) if server._tiered else [server.pool]
 
 

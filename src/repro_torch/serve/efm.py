@@ -1,58 +1,151 @@
-"""EFM serving steps: prefill and batched decode, on one card.
+"""EFM serving steps: prefill and batched decode, on one card or sharded
+over a device mesh.
 
-Port of ``repro/serve/efm.py``.  The reference compiles each step with
-``jax.jit`` over a device mesh and returns it with its sharding specs;
-PyTorch runs eagerly, so here each step is a plain callable on the
-model's device, without gradients.  The steps take any family's batch
+Port of ``repro/serve/efm.py``.  PyTorch runs eagerly, so each step is a
+plain callable, without gradients.  The steps take any family's batch
 (``models/model.py``: tokens, plus ``img_embed`` for the VLM and
 ``src_embed`` for the encoder-decoder, whose prefill returns no logits
 and whose decode starts at position 0); ``pad_for_decode`` gives a
 prefill's state room for the decoded tokens, the caller's job in the
-reference (``examples/serve_stream.py``).  Sharding over a mesh is not
-ported yet (``ROADMAP.md``, Queue 1 item 6): passing a mesh raises.
+reference (``examples/serve_stream.py``).
+
+``mesh=None`` returns the step alone, on the model's device.  With a mesh
+(and the reference's ``shape_spec``) each returns ``(step, specs)`` as the
+reference does: one process per device, the parameters gathered whole on
+every rank (plain tensors are taken as the whole value; DTensors are
+gathered), each rank running the family's code on its batch rows under
+the ambient mesh (``launch.mesh.use_mesh``), the decode state placed by
+``serve_specs``.  Prefill returns its logits and cache as DTensors split
+over the batch rows; decode returns the logits replicated (the
+reference's ``P()``) and the state placed by its specs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.utils import _pytree as pytree
 
+from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as S
 from repro_torch.models.model import Model
 
 
-def _one_card(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving over a device mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6); pass mesh=None"
-        )
+def _whole(tree):
+    from torch.distributed.tensor import DTensor
+
+    return pytree.tree_map(
+        lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
 
 
-def jit_prefill(model: Model, mesh=None) -> Callable:
-    """Full-context ingest: ``step(params, batch) -> (logits, cache)``."""
-    _one_card(mesh)
+# Where each serve-state leaf keeps its batch dim, counted from the end
+# (the sharding rules find it by size, which a layer count can equal).
+_BATCH_FROM_END = {"k": 4, "v": 4, "xk": 4, "xv": 4, "wkv": 4, "ssm": 4,
+                   "c_kv": 3, "k_rope": 3, "conv": 3, "shift_tm": 2,
+                   "shift_cm": 2, "slot_pos": 2}
+
+
+def _rows(mesh, tree, batch_axes):
+    """``NamedSharding``s splitting each state leaf's batch dim over
+    ``batch_axes``: the rows one rank computes."""
+
+    def one(path, x):
+        spec = [None] * x.ndim
+        spec[x.ndim - _BATCH_FROM_END[S._key_str(path[-1])]] = (
+            batch_axes or None)
+        return S.NamedSharding(mesh, S.P(*spec))
+
+    leaves, spec = pytree.tree_flatten_with_path(tree)
+    return pytree.tree_unflatten([one(p, x) for p, x in leaves], spec)
+
+
+def _need_shape(shape_spec) -> None:
+    if shape_spec is None:
+        raise ValueError("a step on a mesh is built for one shape: pass "
+                         "shape_spec (configs.base.ShapeSpec)")
+
+
+def jit_prefill(model: Model, mesh=None, shape_spec=None):
+    """Full-context ingest: ``step(params, batch) -> (logits, cache)``;
+    on a mesh ``(step, {"params", "batch"})``."""
+    if mesh is None:
+        @torch.no_grad()
+        def prefill(params, batch):
+            return model.prefill(params, batch)
+
+        return prefill
+
+    _need_shape(shape_spec)
+    pspecs = S.param_specs(model.cfg, model.param_spec(), mesh)
+    bspecs = S.batch_specs(model.cfg, shape_spec, mesh)
+    on_batch = S.named(mesh, bspecs)
+    b_axes = S.spec_axes(bspecs["tokens"][0])
 
     @torch.no_grad()
-    def prefill(params, batch):
-        return model.prefill(params, batch)
+    def sharded_prefill(params, batch):
+        local = {k: S.place(v, on_batch[k]).to_local()
+                 for k, v in batch.items()}
+        with M.use_mesh(mesh, b_axes):
+            logits, cache = model.prefill(_whole(params), local)
+        out = None if logits is None else _from_rows(
+            logits, S.NamedSharding(mesh, S.P(b_axes or None)))
+        cache = pytree.tree_map(_from_rows, cache, _rows(mesh, cache, b_axes))
+        return out, cache
 
-    return prefill
+    return sharded_prefill, {"params": pspecs, "batch": bspecs}
 
 
-def jit_decode_step(model: Model, mesh=None) -> Callable:
+def _from_rows(x, sharding):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, sharding.mesh, sharding.placements,
+                              run_check=False)
+
+
+def jit_decode_step(model: Model, mesh=None, shape_spec=None):
     """One-token decode: ``step(params, state, token, pos) -> (logits,
-    state)``; the state's cache is updated in place (the reference
-    donates it)."""
-    _one_card(mesh)
+    state)``; the state's cache is updated in place (the reference donates
+    it).  On a mesh ``(step, {"params", "state", "token"})``."""
+    if mesh is None:
+        @torch.no_grad()
+        def decode(params, state, token, pos):
+            return model.decode_step(params, state, token, pos)
+
+        return decode
+
+    from torch.distributed.tensor import Replicate
+
+    _need_shape(shape_spec)
+    b = shape_spec.global_batch
+    pspecs = S.param_specs(model.cfg, model.param_spec(), mesh)
+    sshape = model.serve_spec(b, shape_spec.seq_len)
+    sspecs = S.serve_specs(model.cfg, sshape, mesh, b)
+    dp = S._dp(mesh, b)
+    tok_spec = S.P(dp if dp else None, None)
+    on_state = S.named(mesh, sspecs)
+    on_rows = _rows(mesh, sshape, dp)
+    on_token = S.NamedSharding(mesh, tok_spec)
+    replicated = [Replicate()] * len(M.mesh_axes(mesh))
 
     @torch.no_grad()
-    def decode(params, state, token, pos):
-        return model.decode_step(params, state, token, pos)
+    def sharded_decode(params, state, token, pos):
+        rows = pytree.tree_map(lambda x, r: S.place(x, r).to_local(),
+                               state, on_rows)
+        tok = S.place(token, on_token).to_local()
+        with M.use_mesh(mesh, dp or ()):
+            logits, rows = model.decode_step(_whole(params), rows, tok, pos)
+        logits = _from_rows(logits, S.NamedSharding(
+            mesh, S.P(dp or None))).redistribute(mesh, replicated)
+        state = pytree.tree_map(
+            lambda x, r, on: S.place(_from_rows(x, r), on), rows, on_rows,
+            on_state)
+        return logits, state
 
-    return decode
+    return sharded_decode, {"params": pspecs, "state": sspecs,
+                            "token": tok_spec}
 
 
 def pad_for_decode(model: Model, state, n: int):

@@ -42,7 +42,17 @@ pairwise merged when the backlog is low) by a measured-cost
 Eviction policies: ``"explicit"`` (only :meth:`close`), ``"idle"``
 (streams idle >= ``idle_frames`` frames are closed at tick end), and
 ``"lru"`` (a full pool evicts the least-recently-stepped stream to admit a
-new one).  The reference's mesh mode waits for ROADMAP.md Queue 1 item 6.
+new one).
+
+**Stream sharding** (``mesh=``, ``launch.mesh.make_stream_mesh``): one
+process per device, every rank running the same server on the same
+submits (the host state -- queues, slot table, controllers, telemetry --
+is replicated), each stepping its own ``capacity / k`` slots with no
+collective in the step.  A chunk is copied to the device only by the rank
+holding its stream's slot; the tick's readback gathers every rank's slot
+rows, so every rank feeds its controllers the same numbers.  ``state``,
+``export`` and ``tokens`` broadcast from the owner: every rank calls them.
+Tiers and a mesh are mutually exclusive, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,9 +70,11 @@ from typing import (
     Tuple,
 )
 
+import numpy as np
 import torch
 from torch import Tensor
-from repro_torch.api.pool import _mesh_not_ported, tree_map
+
+from repro_torch.api.pool import tree_map
 from repro_torch.api.types import SensorChunk
 from repro_torch.obs.metrics import MetricsRegistry, counter_property
 from repro_torch.obs.trace import NULL_SPAN
@@ -168,8 +180,8 @@ class StreamServer:
         config: ServerConfig = ServerConfig(),
         *,
         mesh=None,
+        axis: Optional[str] = None,
     ):
-        _mesh_not_ported(mesh)
         if config.eviction not in _EVICTION_POLICIES:
             raise ValueError(
                 f"unknown eviction policy {config.eviction!r}; "
@@ -238,10 +250,19 @@ class StreamServer:
             self._make_controller(compressor, config)
         self._tiered = config.tiers is not None
         if self._tiered:
+            if mesh is not None:
+                raise ValueError(
+                    "tiers and a stream mesh are mutually exclusive: "
+                    "sharding differently-sized tiers over one stream "
+                    "axis would need per-tier meshes (use the flat "
+                    "pool on a mesh, or tiers on one host)"
+                )
             tiers = validate_tiers(config.tiers, config.capacity)
             self.pool: Any = TieredPool(compressor, tiers)
         else:
-            self.pool = SlottedPool(compressor, config.capacity)
+            self.pool = SlottedPool(compressor, config.capacity, mesh=mesh,
+                                    axis=axis)
+        self.mesh = mesh
         if config.prewarm:
             self.pool.prewarm()
         self._sched = RungScheduler(
@@ -431,11 +452,18 @@ class StreamServer:
             self._telemetry[session_id].n_queue_overflow += 1
             self.n_backpressure += 1
             return False
-        chunk = chunk_to_device(chunk, self.device)
         if self._zero_chunk is None:
             self._zero_chunk = SensorChunk(*(
-                None if x is None else torch.zeros_like(x) for x in chunk
+                None if x is None else torch.zeros(
+                    tuple(np.shape(x)), dtype=torch.float32,
+                    device=self.device) for x in chunk
             ))
+        # On a mesh only the rank holding the stream's slot needs its
+        # rows; the others queue a placeholder, keeping the same queue.
+        if self._tiered or self.pool.owns(self.pool.slot_of(session_id)):
+            chunk = chunk_to_device(chunk, self.device)
+        else:
+            chunk = None
         return q.push(chunk, tick=self.n_ticks)
 
     # -- tracing hooks -------------------------------------------------------
@@ -577,7 +605,7 @@ class StreamServer:
                 rows = [self._zero_chunk] * self._tier_capacity(tier)
                 tp = self._tier_pool(tier)
                 for sid, chunk in ready.items():
-                    if self._locate(sid)[0] == tier:
+                    if self._locate(sid)[0] == tier and chunk is not None:
                         rows[tp.slot_of(sid)] = chunk
                 batches[tier] = SensorChunk(*(
                     None if xs[0] is None else torch.stack(xs)
@@ -628,7 +656,8 @@ class StreamServer:
             tiers_stepped = sorted(stats_by_tier)
             with self._span("readback"):
                 rb = tick_readback(
-                    [stats_by_tier[t] for t in tiers_stepped]
+                    [stats_by_tier[t] for t in tiers_stepped],
+                    gather=None if self._tiered else self.pool.gather_slots,
                 )
             self._last_tick_wall = time.monotonic() - self._tick_t0
             self._sched.observe_tick(keys, self._last_tick_wall)

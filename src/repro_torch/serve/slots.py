@@ -19,6 +19,15 @@ the same slot-batched step:
   device and bumps its generation; ``evict`` clears the flag and leaves
   the state bytes behind.
 
+**Stream sharding** (``mesh=``, ``launch.mesh.make_stream_mesh``): one
+process per device, each owning ``capacity / k`` consecutive slots.  The
+host slot table is replicated (every rank admits, evicts and steps the
+same sessions), the device state holds this rank's slots only, and each
+rank steps them through the same vmapped body with no collective; a
+step's stats come back for the local slots.  Reading one slot's state
+(``slot_state``, ``export``, ``tokens``) broadcasts it from its owner, a
+collective call every rank makes.
+
 Bitwise contract (``tests/test_torch_serve.py``): a slot stepped with its
 mask set equals an independent session; evicting a slot and re-admitting
 into it gives a fresh session; inactive slots never perturb active ones.
@@ -46,7 +55,7 @@ from torch import Tensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.api.pool import (
-    _mesh_not_ported,
+    StreamShard,
     _reject_k_ladder,
     stack_states,
     tree_map,
@@ -131,8 +140,9 @@ class SlottedPool:
       compressor: the session implementation filling the slots (its
         ``session_body``, ``init`` and ``device``).
       capacity: number of slots (the batch width of every step).
-      mesh: stream sharding is not ported (ROADMAP.md Queue 1 item 6);
-        anything but ``None`` raises.
+      mesh / axis: optional stream mesh, as in ``StreamPool``: each rank
+        steps its own ``capacity / k`` slots; ``capacity`` must divide
+        evenly over the axis size.
       fresh: optional pre-built fresh-session state (the speculative
         admission image); a :class:`~repro_torch.serve.tiers.TieredPool`
         builds it once for all its tiers.  ``None`` calls
@@ -145,13 +155,19 @@ class SlottedPool:
         capacity: int,
         *,
         mesh=None,
+        axis: Optional[str] = None,
         fresh: Optional[Any] = None,
     ):
-        _mesh_not_ported(mesh)
         _reject_k_ladder(compressor, "SlottedPool")
         self.compressor = compressor
         self.capacity = capacity
         self.device = compressor.device
+        self.mesh = mesh
+        self.shard = None if mesh is None else StreamShard(
+            mesh, capacity, axis, "capacity", self.device)
+        self.axis = None if self.shard is None else self.shard.axis
+        # Device slots of this rank: all of them, or its block on a mesh.
+        n_dev = capacity if self.shard is None else self.shard.n_local
         # Host mirror of the allocation state (the device `active` mask is
         # authoritative for compute; the mirror avoids a host sync on
         # every admission decision).
@@ -162,10 +178,10 @@ class SlottedPool:
         self._steps: Dict[Hashable, _Program] = {}
         self._ones_mask: Optional[Tensor] = None
         self.states = SlotStates(
-            sessions=stack_states(self._fresh, capacity),
-            active=torch.zeros((capacity,), dtype=torch.bool,
+            sessions=stack_states(self._fresh, n_dev),
+            active=torch.zeros((n_dev,), dtype=torch.bool,
                                device=self.device),
-            generation=torch.zeros((capacity,), dtype=torch.int32,
+            generation=torch.zeros((n_dev,), dtype=torch.int32,
                                    device=self.device),
         )
 
@@ -203,9 +219,19 @@ class SlottedPool:
 
     # -- device-side slot writes ---------------------------------------------
 
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """``slot``'s index among this rank's device slots, or ``None``
+        when another rank holds it."""
+        if self.shard is None:
+            return slot
+        return slot - self.shard.lo if self.shard.owns(slot) else None
+
     def _write_slot(self, slot: int, one: Any) -> None:
         """Copy one session state into ``slot``, bump its generation and
         mark it active: in-place device copies, no host sync."""
+        slot = self._local_slot(slot)
+        if slot is None:
+            return
         for buf, x in zip(pytree.tree_leaves(self.states.sessions),
                           pytree.tree_leaves(one)):
             if buf is not None:
@@ -214,8 +240,14 @@ class SlottedPool:
         self.states.generation[slot].add_(1)
 
     def _read_slot(self, slot: int) -> Any:
-        """A copy of the session state held by ``slot`` (device tensors)."""
-        return tree_map(lambda x: x[slot].clone(), self.states.sessions)
+        """A copy of the session state held by ``slot`` (device tensors);
+        on a mesh, broadcast from the rank holding it."""
+        local = self._local_slot(slot)
+        if self.shard is None:
+            return tree_map(lambda x: x[local].clone(), self.states.sessions)
+        held = 0 if local is None else local
+        return self.shard.broadcast(
+            tree_map(lambda x: x[held].clone(), self.states.sessions), slot)
 
     # -- admission / eviction ------------------------------------------------
 
@@ -258,7 +290,9 @@ class SlottedPool:
         from now on); the next ``admit`` into it overwrites them."""
         if self.session_at[slot] is None:
             raise ValueError(f"slot {slot} is already free")
-        self.states.active[slot].fill_(False)
+        local = self._local_slot(slot)
+        if local is not None:
+            self.states.active[local].fill_(False)
         self._host_unbind(slot)
 
     def evict_session(self, session_id: Hashable) -> int:
@@ -304,16 +338,33 @@ class SlottedPool:
         ``session_body``).  Mask and state values never build a program.
 
         Returns the per-frame stats tree, ``(capacity, T, ...)``, zeroed on
-        masked-out slots; ``self.states`` is replaced.
+        masked-out slots (on a mesh, this rank's slots only);
+        ``self.states`` is replaced.
         """
         self._check_chunks(chunks)
-        if mask is None:
-            mask = self._all_slots_mask()
         prog = self._program(
             key, (make_body or self.compressor.session_body,)
         )
-        self.states, stats = prog(self.states, chunks, [mask])
+        if mask is None:
+            mask = self._all_slots_mask()
+        elif self.shard is not None:
+            mask = self.shard.rows(mask)
+        self.states, stats = prog(self.states, self._local_chunks(chunks),
+                                  [mask])
         return stats
+
+    def _local_chunks(self, chunks: SensorChunk) -> SensorChunk:
+        return chunks if self.shard is None else self.shard.chunk(chunks)
+
+    def owns(self, slot: int) -> bool:
+        """Whether this rank's device holds ``slot`` (always, unsharded)."""
+        return self.shard is None or self.shard.owns(slot)
+
+    def gather_slots(self, x: Tensor, dim: int = 0) -> Tensor:
+        """Per-slot rows of this rank's slots (along ``dim``) joined over
+        the mesh into the whole pool's, in slot order (a collective call
+        on a mesh; ``x`` itself unsharded)."""
+        return x if self.shard is None else self.shard.gather(x, dim)
 
     def step_multi(
         self,
@@ -331,13 +382,17 @@ class SlottedPool:
         combined stats, zeroed outside the union of the masks."""
         self._check_chunks(chunks)
         prog = self._program(key, make_bodies)
-        self.states, stats = prog(self.states, chunks, list(masks))
+        if self.shard is not None:
+            masks = masks.narrow(1, self.shard.lo, self.shard.n_local)
+        self.states, stats = prog(self.states, self._local_chunks(chunks),
+                                  list(masks))
         return stats
 
     def _all_slots_mask(self) -> Tensor:
         if self._ones_mask is None:
-            self._ones_mask = torch.ones((self.capacity,), dtype=torch.bool,
-                                         device=self.device)
+            self._ones_mask = torch.ones(
+                (self.states.active.shape[0],), dtype=torch.bool,
+                device=self.device)
         return self._ones_mask
 
     def step_cache_sizes(self) -> Dict[Hashable, int]:

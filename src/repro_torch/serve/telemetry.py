@@ -85,7 +85,7 @@ def _tick_reductions(stats: Any) -> Tensor:
     ])
 
 
-def tick_readback(stats: Any) -> TickReadback:
+def tick_readback(stats: Any, gather=None) -> TickReadback:
     """Reduce pooled stats tree(s) to per-slot tick scalars.
 
     ``stats`` tensors are ``(capacity, T, ...)`` (masked slots zeroed — see
@@ -99,6 +99,8 @@ def tick_readback(stats: Any) -> TickReadback:
     tree's slots, ``[cap_0, cap_0 + cap_1)`` the second's, and so on.
 
     Either way, everything crosses to the host in **one** ``.cpu()``.
+    ``gather`` (a stream-sharded pool's ``gather_slots``) joins every
+    rank's slot rows first, so each rank reads the whole pool's.
     """
     # A stats tree is typically a NamedTuple — only a *plain* list/tuple
     # means "one tree per stepped tier".
@@ -106,6 +108,8 @@ def tick_readback(stats: Any) -> TickReadback:
     if not parts:
         raise ValueError("tick_readback needs at least one stats tree")
     rows = torch.cat([_tick_reductions(s) for s in parts], dim=1)
+    if gather is not None:
+        rows = gather(rows, 1)
     return TickReadback(*rows.cpu().numpy())
 
 

@@ -1236,3 +1236,46 @@ def test_depth_stage_with_cudnn_at_its_defaults_matches_the_cpu(device):
     for a, b in zip(out["cpu"][2], out["cuda"][2]):
         assert float((b - a).abs().max()) <= 1e-4 * float(a.abs().max())
 
+
+
+def test_one_rank_nccl_decode_equals_one_device(device):
+    """``jit_decode_step`` on ``make_host_mesh()`` (a one-rank NCCL group)
+    gives the ``mesh=None`` step's logits, bitwise, for 4 greedy tokens of
+    TinyLlama's smoke configuration from one prefill."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import efm
+
+    created = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device=device)
+        assert dist.get_backend() == "nccl"
+        cfg = get_smoke_config("tinyllama-1.1b").replace(
+            cache_dtype="float32")
+        model = build_model(cfg, device=device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab, (2, 8), device=device,
+                               generator=torch.Generator(
+                                   device=device).manual_seed(1))
+        _, cache = efm.jit_prefill(model)(params, {"tokens": tokens})
+        new = 4
+        plain = efm.jit_decode_step(model)
+        sharded, specs = efm.jit_decode_step(
+            model, mesh, ShapeSpec("x", "decode", 8 + new, 2))
+        assert set(specs) == {"params", "state", "token"}
+        a = efm.pad_for_decode(model, cache, new)
+        b = {k: v.clone() for k, v in a.items()}
+        tok = tokens[:, -1:]
+        for i in range(new):
+            la, a = plain(params, a, tok, 8 + i)
+            lb, b = sharded(params, b, tok, 8 + i)
+            b = {k: v.full_tensor() for k, v in b.items()}
+            assert torch.equal(la, lb.full_tensor()), i
+            tok = torch.argmax(la[:, -1:], dim=-1).to(torch.int32)
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()

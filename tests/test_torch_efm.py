@@ -236,10 +236,14 @@ def test_entry_points_need_a_device_without_cuda():
 
 
 def test_a_mesh_raises():
+    """A step on a mesh is built for one shape: without ``shape_spec`` it
+    raises (the sharded steps themselves: ``test_torch_distributed.py``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+
     tm = build_model(get_smoke_config("olmo-1b"), device="cpu")
     for fn in (tefm.jit_prefill, tefm.jit_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            fn(tm, mesh=object())
+        with pytest.raises(ValueError, match="shape_spec"):
+            fn(tm, mesh=AbstractMesh((1, 1), ("data", "model")))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

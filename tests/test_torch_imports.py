@@ -307,3 +307,23 @@ def test_wire_lazy_table_is_the_references_and_resolves():
 
     assert {n: m.rsplit(".", 1)[1] for n, m in wire._LAZY.items()} \
         == ref_lazy
+
+
+def test_the_launch_layer_imports_without_jax():
+    """The mesh and distribution layer: every ``repro_torch.launch``
+    module, with JAX blocked."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.sharding\n"
+            "import repro_torch.launch.compression\n"
+            "import repro_torch.launch.collectives\n"
+            "import repro_torch.launch.serve, repro_torch.launch.train\n"
+            "import repro_torch.launch.train_efm\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr

@@ -377,3 +377,59 @@ def test_moe_mla_from_jax_rejects_a_wrong_tree(pair):
     wrong = dict(np_params, final_norm={"scale": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="shape"):
         convert.moe_mla_from_jax(wrong, tcfg, device="cpu")
+
+
+def _index_add_combine(y, info, t, cdt):
+    """The scatter-add combine ``_combine`` replaced: ``index_add_`` in slot
+    order (on the CPU it adds each row in turn, a bf16 tensor in
+    float32)."""
+    tok_by_slot, gate_by_slot, valid = info[:3]
+    e, c, d = y.shape
+    y_flat = y.reshape(e * c, d) * gate_by_slot[:, None].to(cdt)
+    y_flat = torch.where(valid[:, None], y_flat, 0.0)
+    return torch.zeros((t, d), dtype=cdt).index_add_(
+        0, tok_by_slot.long(), y_flat)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [1.0, 8.0])
+def test_deterministic_combine_is_the_index_add_combine_bitwise(dtype, cf):
+    """The fixed-order combine equals the ``index_add_`` scatter it
+    replaced, bitwise, with drops (capacity factor 1.0) and without, in
+    float32 and bf16."""
+    cfg = get_smoke_config("deepseek-v2-lite-16b").replace(
+        moe_capacity_factor=cf)
+    gen = torch.Generator().manual_seed(3)
+    t, e, k = 96, cfg.moe_experts, cfg.moe_top_k
+    x2 = torch.randn((t, cfg.d_model), generator=gen)
+    router = torch.randn((cfg.d_model, e), generator=gen)
+    gates, eids, _ = TMOE._route({"router": router}, x2, cfg)
+    c = TMOE.moe_capacity(cfg, t)
+    _, info = TMOE._dispatch(x2, gates, eids, e, c)
+    assert (int(info[2].sum()) < t * k) == (cf == 1.0)
+    y = torch.randn((e, c, cfg.d_model), generator=gen).to(dtype)
+    got = TMOE._combine(y, info, t, dtype)
+    want = _index_add_combine(y, info, t, dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deterministic_combine_on_the_highest_expert_ids(dtype):
+    """Tokens routed to the k = 3 highest expert ids (their slots the last
+    ones of the buffer), beside tokens on the lowest, with large values:
+    bitwise the ``index_add_`` combine (three rows a token, where rounding
+    each add in bf16 would differ from ``index_add_``'s float32 sum)."""
+    e, k, c, d, t = 8, 3, 4, 16, 5
+    eids = torch.tensor([[e - 1, e - 2, e - 3], [0, 1, 2], [e - 3, e - 1,
+                         e - 2], [1, 0, 2], [e - 2, e - 3, e - 1]])
+    gen = torch.Generator().manual_seed(4)
+    gates = torch.softmax(torch.randn((t, k), generator=gen), -1)
+    x2 = torch.randn((t, d), generator=gen)
+    _, info = TMOE._dispatch(x2, gates, eids, e, c)
+    assert sorted(info[3][0].tolist()) == info[3][0].tolist()
+    assert info[3][0].min() >= (e - 3) * c  # the last experts' slots
+    y = (torch.randn((e, c, d), generator=gen) * 100).to(dtype)
+    got = TMOE._combine(y, info, t, dtype)
+    assert torch.equal(got, _index_add_combine(y, info, t, dtype))
+    assert not torch.equal(got[0], torch.zeros_like(got[0]))

@@ -397,14 +397,26 @@ def test_train_step_accumulates_in_float32_and_keeps_dtypes_without():
 
 
 def test_train_step_refuses_what_needs_a_mesh():
+    """The EF-int8 exchange needs an ambient mesh, the sharded step its
+    moments' shardings on a ``DeviceMesh`` (the steps themselves:
+    ``test_torch_distributed.py``)."""
+    from _torch_parity import to_torch
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import AbstractMesh
 
-    _, tm, *_ = _train_case()
-    for kw in ({"grad_axis": "pod"}, {"grad_specs": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            ttrain.make_train_step(tm, adamw.AdamWConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttrain.jit_train_step(tm, object(), adamw.AdamWConfig())
+    _, tm, _, params, batch = _train_case()
+    tparams = torch.utils._pytree.tree_map(to_torch, params)
+    step = ttrain.make_train_step(tm, adamw.AdamWConfig(), grad_axis="pod")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        step(tparams, adamw.init(tparams),
+             {"tokens": to_torch(batch["tokens"])}, 0)
+    with pytest.raises(TypeError, match="NamedSharding"):
+        ttrain.make_train_step(tm, adamw.AdamWConfig(), grad_specs=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ttrain.jit_train_step(tm, AbstractMesh((1, 1), ("data", "model")),
+                              adamw.AdamWConfig(),
+                              shape_spec=ShapeSpec("x", "train", 8, 2))
 
 
 def test_init_train_state_casts_the_moments():

@@ -167,8 +167,13 @@ class TestSlottedPool:
                                   k_ladder=(4, 8))
         with pytest.raises(ValueError, match="StreamServer"):
             SlottedPool(comp, 2)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            SlottedPool(_comp(), 2, mesh=object())
+        from repro_torch.launch.mesh import AbstractMesh
+
+        with pytest.raises(ValueError, match="divide evenly"):
+            SlottedPool(_comp(), 2, mesh=AbstractMesh((3,), ("streams",)))
+        with pytest.raises(ValueError, match="not in mesh axes"):
+            SlottedPool(_comp(), 2, mesh=AbstractMesh((1,), ("streams",)),
+                        axis="data")
 
     def test_masked_step_equals_sessions_and_isolation(self):
         cfg = _ecfg(capacity=16)
@@ -351,8 +356,13 @@ def test_stream_pool_validation():
     with pytest.raises(ValueError, match="lock-step"):
         api.StreamPool(api.EPICCompressor(_ecfg(prefilter_k=4),
                                           device="cpu", k_ladder=(4, 8)), 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.StreamPool(_comp(), 2, mesh=object())
+    from repro_torch.launch.mesh import AbstractMesh
+
+    with pytest.raises(ValueError, match="divide evenly"):
+        api.StreamPool(_comp(), 2, mesh=AbstractMesh((3,), ("streams",)))
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        api.StreamPool(_comp(), 2, mesh=AbstractMesh((1,), ("streams",)),
+                       axis="data")
     pool = api.StreamPool(_comp(), 2)
     with pytest.raises(ValueError, match="leading stream axis"):
         pool.step(pool.init(), _chunks(0)[0])
@@ -571,8 +581,14 @@ class TestStreamServer:
         with pytest.raises(ValueError, match="shrink_margin"):
             StreamServer(_comp(prefilter_k=4),
                          ServerConfig(k_ladder=(4, 8), shrink_margin=0))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            StreamServer(comp, ServerConfig(), mesh=object())
+        from repro_torch.launch.mesh import AbstractMesh
+
+        with pytest.raises(ValueError, match="divide evenly"):
+            StreamServer(comp, ServerConfig(capacity=8),
+                         mesh=AbstractMesh((3,), ("streams",)))
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            StreamServer(comp, ServerConfig(capacity=8, tiers=(4, 4)),
+                         mesh=AbstractMesh((1,), ("streams",)))
 
     def test_full_pool_rejects_then_lru_evicts(self):
         srv = _server(capacity=2)
