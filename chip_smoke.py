@@ -270,13 +270,31 @@ and prints no result line):
    stream mesh, 8 slots, 8 live streams x 4 chunks, one closed and one
    admitted, the ladder ``SERVE_LADDER``: on the oracle and int8 depth
    tracks, every stream's state bitwise the ``mesh=None`` run's,
-   ``k_trajectory`` equal, ``rm_fused`` and ``qconv_int8`` launches equal.
+   ``k_trajectory`` equal, ``rm_fused`` and ``qconv_int8`` launches equal;
+   then one more chunk queued on every stream, the sharded server saved
+   (``serve/checkpoint.save_server``): its step directory byte-equal to
+   the ``mesh=None`` server's (the manifest's ``time`` and the scheduler's
+   measured costs aside, every npz member), restored into a fresh sharded
+   server and ticked, bitwise the uninterrupted runs.
    (c) ``jit_prefill`` and ``jit_decode_step`` of TinyLlama-1.1B bf16 on
    the mesh with ``attn_backend="pallas"``: 4 x 1024 and 8 greedy tokens,
    the logits bitwise ``mesh=None``'s, 22 flash launches a prefill.  (d)
    ``moe_ffn`` with ``moe_impl="ep"`` on the one-rank mesh returns to the
    sort path (``moe_ffn_ep`` gives ``None`` at ``n_ep == 1``): bitwise
-   ``moe_ffn_sort``'s output at DeepSeek-V2-Lite-16B's width.
+   ``moe_ffn_sort``'s output at DeepSeek-V2-Lite-16B's width.  20a also
+   reads, for phase 21b, the bytes placing 19a's parameters and moments
+   asks the allocator for and one step's peak from them.
+21. The dry-run, in a process of its own (``chip_smoke.py --dryrun``,
+   started after phase 20; no card: a fake process group takes the
+   process's one default group).  (a) ``launch.dryrun.run_cell`` at full
+   width on DRYRUN_CELLS (TinyLlama-1.1B train_4k on 16x16, Qwen2.5-3B
+   prefill_32k on 16x16, DeepSeek-V3-671B decode_32k on 2x16x16): each
+   ``ok``; per-device bytes, peak against 80 GB, flops and collective
+   bytes printed.  (b) The dry-run of phase 20a's step on a (1, 1) mesh on
+   a fake world of one: its parameters' and moments' bytes held equal to
+   the bytes phase 20a's placement asked the caching allocator for
+   (``requested_bytes``; the ``memory_allocated`` growth printed beside
+   it), its peak printed beside the card's.
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
@@ -478,6 +496,10 @@ TRAIN_TOL = 1e-4
 DIST_STEPS = 4
 DIST_SLOTS, DIST_CHUNKS, DIST_CHURN_AT = 8, 4, 2
 DIST_EP_TOKENS = (2, 512)
+# Phase 21: the dry-run's full-width cells (arch, shape, multi-pod mesh).
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
+                ("qwen2.5-3b", "prefill_32k", False),
+                ("deepseek-v3-671b", "decode_32k", True))
 
 
 def _need(ok: bool, msg: str) -> None:
@@ -3999,9 +4021,12 @@ def phase_dist_train(torch, device, mesh, card):
     import statistics
     from unittest import mock
 
+    from torch.utils import _pytree as pytree
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import compression, train
+    from repro_torch.launch import sharding as S
     from repro_torch.launch.mesh import use_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, compress
@@ -4011,17 +4036,34 @@ def phase_dist_train(torch, device, mesh, card):
                                        compute_dtype="bfloat16")
     model = build_model(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    params, opt = train.init_train_state(model, gen)
-    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, device)
     shape = ShapeSpec("smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
     step_fn, specs = train.jit_train_step(model, mesh, adamw.AdamWConfig(),
                                           shape_spec=shape, warmup_steps=0)
+    # What phase 21b's dry-run predicts: the bytes the parameters and
+    # moments take once placed by their specs, and one step's peak.
+    def allocated():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    before = allocated()
+    params, opt = train.init_train_state(model, gen)
+    placed = (S.place_tree(params, S.named(mesh, specs["params"])),
+              S.place_tree(opt, S.named(mesh, specs["opt"])))
+    requested, resident = (a - b for a, b in zip(allocated(), before))
+    n_tensors = len(pytree.tree_leaves((params, opt)))
+    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, device)
     plain = train.make_train_step(model, adamw.AdamWConfig(),
                                   warmup_steps=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, o, m = step_fn(*placed, batch, 0)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    del placed
     ref = plain(params, opt, batch, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    p, o, m = step_fn(params, opt, batch, 0)
     first = (whole(torch, p), adamw.AdamWState(
         whole(torch, o.step), whole(torch, o.mu), whole(torch, o.nu)), m)
     errs = hold_step(torch, "20a", ref, first, 3e-4)
@@ -4046,6 +4088,10 @@ def phase_dist_train(torch, device, mesh, card):
           f"first step vs make_train_step {fmt_errs(errs)} (tol {TRAIN_TOL}; "
           f"params: largest difference over the allowed, pass <= 1); "
           f"bitwise {bitwise}; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[20a] placed parameters and moments: {requested} bytes "
+          f"requested in {n_tensors} tensors, memory_allocated growth "
+          f"{resident} bytes; one step's peak from them "
+          f"{step_peak / 2**30:.2f} GiB (max_memory_allocated) ({card})")
     print(f"[20a] sharded step time median {med * 1e3:.1f} ms (steps 1-"
           f"{DIST_STEPS - 1}: {', '.join(f'{t * 1e3:.1f}' for t in times)}),"
           f" peak memory {peak:.2f} GiB ({card})")
@@ -4071,8 +4117,6 @@ def phase_dist_train(torch, device, mesh, card):
         _, _, m_ef = ef_step(params, opt, batch, 0)
         loss_ef = float(m_ef["loss"])
         t_ef = time.perf_counter() - t0
-        from torch.utils import _pytree as pytree
-
         grads = seen["in"]
         q, scales, _ = compress.compress(grads, compress.init(grads))
         payload = all(
@@ -4094,7 +4138,9 @@ def phase_dist_train(torch, device, mesh, card):
           f"loss {loss_ef:.6f} (unsharded step with the exchange "
           f"{float(m_plain['loss']):.6f}); step {t_ef * 1e3:.1f} ms with the "
           f"exchange ({card})")
-    return {"step_ms": med * 1e3, "peak_gib": peak, "bitwise": bitwise}
+    return {"step_ms": med * 1e3, "peak_gib": peak, "bitwise": bitwise,
+            "requested": requested, "resident": resident,
+            "n_tensors": n_tensors, "step_peak": step_peak}
 
 
 def dist_serve_run(torch, device, models, founders, late, mesh, depth):
@@ -4142,9 +4188,11 @@ def phase_dist_serve(torch, device, card):
 
     mesh = make_stream_mesh(device=device)
     _, _, models = main_path_inputs(torch, device, CHUNK)
-    founders = serve_feeds(torch, device, DIST_SLOTS, DIST_CHUNKS,
+    # One chunk more a stream than the schedule takes: queued before the
+    # checkpoint.
+    founders = serve_feeds(torch, device, DIST_SLOTS, DIST_CHUNKS + 1,
                            SEED + 3000)
-    late = serve_feeds(torch, device, 1, DIST_CHUNKS - DIST_CHURN_AT,
+    late = serve_feeds(torch, device, 1, DIST_CHUNKS - DIST_CHURN_AT + 1,
                        SEED + 4000)
     for label, run_models, depth in (
             ("oracle depth", pipe.EPICModels(), True),
@@ -4173,6 +4221,85 @@ def phase_dist_serve(torch, device, card):
               f"live stream's state and k_trajectory bitwise the mesh=None "
               f"run's; launches {n_sharded} (mesh=None {n_local}); "
               f"{DIST_CHUNKS} ticks in {dt * 1e3:.1f} ms ({card})")
+        dist_serve_checkpoint(torch, device, run_models, mesh, local,
+                              sharded, founders, late, depth, label)
+
+
+def step_dir_bytes(d):
+    """A checkpoint step directory's bytes, but for its clock readings:
+    the manifest's text without ``time`` and with the scheduler's cost
+    keys but not its measured costs, and each npz member's bytes (a zip
+    member's header holds its write time)."""
+    import os
+    import zipfile
+
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    man.pop("time")
+    man["serve"]["scheduler_cost"] = [k for k, _ in
+                                      man["serve"]["scheduler_cost"]]
+    out = {"manifest.json": json.dumps(man)}
+    for name in sorted(os.listdir(d)):
+        if name.endswith(".npz"):
+            with zipfile.ZipFile(os.path.join(d, name)) as z:
+                for member in z.namelist():
+                    out[f"{name}/{member}"] = z.read(member)
+    return out
+
+
+def dist_serve_checkpoint(torch, device, models, mesh, local, sharded,
+                          founders, late, depth, label):
+    """(b) One more chunk queued on every live stream; the stream-sharded
+    server's checkpoint byte-equal to the ``mesh=None`` server's, restored
+    into a fresh sharded server and ticked: bitwise the uninterrupted
+    runs."""
+    import os
+    import tempfile
+
+    from repro_torch.api import EPICCompressor, SensorChunk
+    from repro_torch.serve import StreamServer
+    from repro_torch.serve.checkpoint import restore_server, save_server
+
+    extra = {f"s{i}": feed[DIST_CHUNKS] for i, feed in enumerate(founders)}
+    extra["l0"] = late[0][DIST_CHUNKS - DIST_CHURN_AT]
+    for srv in (local, sharded):
+        for sid in srv.live_sessions:
+            c = extra[sid]
+            srv.submit(sid, c if depth else SensorChunk(*c[:3]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_server(os.path.join(tmp, "sharded"), sharded.n_ticks,
+                           sharded)
+        t_save = time.perf_counter() - t0
+        plain = save_server(os.path.join(tmp, "local"), local.n_ticks, local)
+        got, want = step_dir_bytes(path), step_dir_bytes(plain)
+        _need(got == want, f"20b {label}: the sharded server's checkpoint "
+              f"differs from mesh=None's in "
+              f"{sorted(k for k in want if got.get(k) != want[k])}")
+        fresh = StreamServer(
+            EPICCompressor(sharded.compressor.cfg, models, device=device),
+            sharded.cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        restored = restore_server(os.path.join(tmp, "sharded"),
+                                  fresh.compressor, server=fresh).server
+        t_restore = time.perf_counter() - t0
+    for srv in (sharded, restored, local):
+        srv.tick()
+    torch.cuda.synchronize(device)
+    for sid in local.live_sessions:
+        _need(trees_equal(torch, restored.state(sid), sharded.state(sid))
+              and trees_equal(torch, restored.state(sid), local.state(sid))
+              and list(restored.telemetry(sid).k_trajectory)
+              == list(sharded.telemetry(sid).k_trajectory),
+              f"20b {label} {sid}: the restored sharded server differs "
+              f"from the uninterrupted runs after a tick")
+    print(f"[20b] {label}: checkpoint of the sharded server with "
+          f"{len(local.live_sessions)} chunks queued: the manifest and "
+          f"{len(want) - 1} npz members "
+          f"byte-equal to mesh=None's (write times and measured "
+          f"scheduler costs aside); save {t_save * 1e3:.1f} ms, restore into "
+          f"a fresh sharded server {t_restore * 1e3:.1f} ms; one more tick "
+          f"bitwise the uninterrupted sharded and mesh=None runs")
 
 
 def phase_dist_efm(torch, device, mesh, card):
@@ -4297,6 +4424,118 @@ def phase_dist_process(train: dict) -> dict:
           f"19a's make_train_step {train['step_ms']:.1f} ms "
           f"({res['step_ms'] / train['step_ms']:.3f}x); peak memory "
           f"{res['peak_gib']:.2f} GiB beside {train['peak_gib']:.2f} GiB")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the dry-run on fake process groups.
+# ---------------------------------------------------------------------------
+
+
+def phase_dryrun_cells():
+    """(a) ``run_cell`` at full width on DRYRUN_CELLS: each must be ``ok``."""
+    from repro_torch.launch import dryrun as D
+
+    out = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = D.run_cell(arch, shape, multi_pod, verbose=False)
+        _need(rec["ok"], f"21a {arch} x {shape} x {rec['mesh']}: "
+              f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        coll = rec["collectives"]
+        print(f"[21a] {arch} x {shape} x {rec['mesh']}: ok, traced in "
+              f"{rec['trace_s']} s on a fake world of "
+              f"{512 if multi_pod else 256}; per device: parameters "
+              f"{rec['param_bytes_per_device']} B, moments "
+              f"{rec.get('opt_bytes_per_device', '-')} B, cache "
+              f"{rec.get('cache_bytes_per_device', '-')} B, arguments "
+              f"{rec['argument_size_in_bytes']} B, outputs "
+              f"{rec['output_size_in_bytes']} B, temp "
+              f"{rec['temp_size_in_bytes']} B, peak {rec['peak_bytes']} B "
+              f"({'fits' if rec['fits'] else 'does not fit'} in 80 GB); "
+              f"flops {rec['flops']:.4e}; collectives "
+              f"{dict(sorted(coll['counts'].items()))}, "
+              f"{coll['total_bytes']:.6e} B, wire {coll['wire_bytes']:.6e} B")
+        out.append({k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "trace_s", "peak_bytes", "fits")})
+    return out
+
+
+def phase_dryrun_reckoning():
+    """(b) The dry-run of phase 20a's step: TinyLlama-1.1B bf16, remat
+    ``"dots"``, TRAIN_BATCH x TRAIN_SEQ tokens on a (1, 1) mesh on a fake
+    world of one."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+
+    cfg = get_config(EFM_ARCH).replace(remat=True, remat_policy="dots",
+                                       param_dtype="bfloat16",
+                                       compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    with D.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        lowered = D.lower(build_model(cfg, device="meta"),
+                          ShapeSpec("smoke", "train", TRAIN_SEQ, TRAIN_BATCH),
+                          mesh)
+        got = D.trace(lowered)
+    res = {"resident": D.local_bytes(lowered.args[:2]), "peak": got["peak"],
+           "arguments": D.local_bytes(lowered.args)}
+    print(f"[21b] dry-run of phase 20a's step ({EFM_ARCH} bf16, remat dots, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, (1, 1) mesh): parameters and "
+          f"moments {res['resident']} B, arguments {res['arguments']} B, "
+          f"peak {got['peak']} B; traced in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def dryrun_main() -> int:
+    """``chip_smoke.py --dryrun``: phase 21, on the host (a fake process
+    group holds the process's one default group); prints its results as
+    one JSON line, last."""
+    sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cells = phase_dryrun_cells()
+    reckoning = phase_dryrun_reckoning()
+    print(f"[21] phase 21 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"dryrun": {"cells": cells, "reckoning": reckoning}}))
+    return 0
+
+
+def phase_dryrun_process(dist: dict, card: str) -> dict:
+    """Phase 21 in a process of its own (``chip_smoke.py --dryrun``); its
+    lines pass through.  (b) held: the predicted resident bytes of the
+    parameters and moments equal to the bytes phase 20a's placement of
+    them asked the caching allocator for (its ``requested_bytes``);
+    beside them, as readings, the growth of ``memory_allocated`` (block
+    sizes: 512-byte rounding, and a reused cached block is not split
+    when less than 1 MB would remain) and the predicted peak beside
+    phase 20a's one step."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--dryrun"], stdout=subprocess.PIPE, text=True,
+                         timeout=300)
+    lines = out.stdout.splitlines()
+    print("\n".join(lines[:-1] if out.returncode == 0 else lines),
+          flush=True)
+    _need(out.returncode == 0 and lines,
+          f"phase 21 failed (exit {out.returncode})")
+    res = json.loads(lines[-1])["dryrun"]
+    pred, got, n = (res["reckoning"]["resident"], dist["requested"],
+                    dist["n_tensors"])
+    _need(pred == got, f"21b: predicted resident bytes {pred}, the card's "
+          f"requested bytes {got} over {n} tensors")
+    peak = res["reckoning"]["peak"]
+    print(f"[21b] resident parameters and moments: predicted {pred} B, the "
+          f"card's requested bytes {got} B over {n} tensors (equal); "
+          f"memory_allocated growth {dist['resident']} B "
+          f"(+{dist['resident'] - pred} B of block rounding); one step's "
+          f"peak: "
+          f"predicted {peak / 2**30:.2f} GiB beside the card's "
+          f"{dist['step_peak'] / 2**30:.2f} GiB (ratio "
+          f"{peak / dist['step_peak']:.3f}) ({card})")
     return res
 
 
@@ -5168,7 +5407,8 @@ def main() -> int:
                              card).items():
         launches[name] += n
     torch.cuda.empty_cache()  # the card's memory to phase 19's process
-    phase_dist_process(phase_train_process())
+    dist = phase_dist_process(phase_train_process())
+    phase_dryrun_process(dist, card)
     serve = phase_serve_process()
     errs.update(serve["errs"])
     times.update(serve["times"])
@@ -5198,4 +5438,6 @@ if __name__ == "__main__":
         sys.exit(train_main())
     if sys.argv[1:] == ["--dist"]:
         sys.exit(dist_main())
+    if sys.argv[1:] == ["--dryrun"]:
+        sys.exit(dryrun_main())
     sys.exit(serve_main() if sys.argv[1:] == ["--serve"] else main())

@@ -48,11 +48,13 @@ seqs after it are replayed from the client windows).
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Dict, Hashable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.api.pool import tree_map
 from repro_torch.api.types import SensorChunk
 from repro_torch.checkpoint import store
 from repro_torch.serve.ingest import ChunkQueue
@@ -138,12 +140,76 @@ def _decode_key(enc: Any) -> Hashable:
 
 
 def _tier_pools(server: StreamServer) -> List[Any]:
-    if getattr(server.pool, "mesh", None) is not None:
-        raise NotImplementedError(
-            "serve checkpoints of a stream-sharded server are not ported: "
-            "each rank holds only its own slots (ROADMAP.md, Queue 1 "
-            "item 6)")
     return list(server.pool.tiers) if server._tiered else [server.pool]
+
+
+# -- a stream-sharded server -------------------------------------------------
+#
+# On a stream mesh every rank runs the same server on the same submits:
+# the host tables are replicated, but each rank holds only its own block
+# of slots, and only the rank holding a stream's slot holds its queued
+# chunks (the others queue placeholders).  A save gathers both over the
+# mesh's group in slot order, so every rank holds what the mesh=None
+# server would, and the group's first rank writes it; a restore reads the
+# whole directory on every rank, which keeps its own slots.
+
+
+def _shard(server: StreamServer):
+    """The pool's ``StreamShard`` on a stream mesh, else ``None`` (tiers
+    and a mesh are mutually exclusive)."""
+    return None if server._tiered else server.pool.shard
+
+
+def _writes(server: StreamServer) -> bool:
+    """Whether this rank writes the server's checkpoint files."""
+    shard = _shard(server)
+    return shard is None or shard.lo == 0
+
+
+def _wait_for_writer(server: StreamServer) -> None:
+    """On a mesh, hold every rank until the writing rank is done."""
+    shard = _shard(server)
+    if shard is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=shard.group)
+
+
+def _gather_slots(shard, states):
+    """The mesh's slot states joined in slot order (a collective call)."""
+    def rows(x):
+        if x.dtype == torch.bool:
+            return shard.gather(x.view(torch.uint8)).view(torch.bool)
+        return shard.gather(x)
+
+    return tree_map(rows, states)
+
+
+def _gather_queues(server: StreamServer, shard,
+                   queues: Dict[str, List[Optional[SensorChunk]]]):
+    """Every queued chunk as the rank holding its stream's slot has it, on
+    every rank (collective calls: the chunks' specs in one object
+    gather, then each chunk broadcast from its owner)."""
+    import torch.distributed as dist
+
+    slots = [server._locate(sid)[1] for sid in server._queues]
+    mine = {name: [_chunk_spec(c) for c in chunks]
+            for (name, chunks), slot in zip(queues.items(), slots)
+            if shard.owns(slot)}
+    specs: List[Dict[str, Any]] = [None] * dist.get_world_size(shard.group)
+    dist.all_gather_object(specs, mine, group=shard.group)
+    specs_of = {k: v for part in specs for k, v in part.items()}
+    out = {}
+    for (name, chunks), slot in zip(queues.items(), slots):
+        if not shard.owns(slot):
+            chunks = [
+                SensorChunk(*(None if f is None else torch.empty(
+                    f[0], dtype=getattr(torch, f[1]), device=server.device)
+                    for f in spec))
+                for spec in specs_of[name]
+            ]
+        out[name] = [shard.broadcast(c, slot) for c in chunks]
+    return out
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -223,7 +289,6 @@ def _snapshot_locked(
                 "sid": _encode_sid(sid),
                 "tier": tier,
                 "slot": local,
-                "queue_spec": [_chunk_spec(c) for c in chunks],
                 "queue_counters": {
                     "n_pushed": q.n_pushed,
                     "n_overflow": q.n_overflow,
@@ -291,7 +356,15 @@ def _snapshot_locked(
             "nacks": dict(ingest.nacks),
         }
 
-    tree = {"tiers": [p.states for p in pools], "queues": queues}
+    tiers = [p.states for p in pools]
+    shard = _shard(server)
+    if shard is not None:
+        with _server_stream(server):  # the gathers follow the server's work
+            tiers = [_gather_slots(shard, p.states) for p in pools]
+            queues = _gather_queues(server, shard, queues)
+    for sess, chunks in zip(sessions, queues.values()):
+        sess["queue_spec"] = [_chunk_spec(c) for c in chunks]
+    tree = {"tiers": tiers, "queues": queues}
     return tree, meta
 
 
@@ -308,6 +381,10 @@ def save_server(
     final step directory); with an :class:`~repro_torch.checkpoint.store.
     AsyncSaver` the snapshot is taken now, the write happens off the
     tick path, and ``None`` is returned.
+
+    On a stream mesh every rank calls it: the slots and queued chunks are
+    gathered (collective calls) and the group's first rank writes the
+    directory, which every rank's synchronous call waits for.
 
     The metadata and the host copy of the device tree are taken together
     under the ingest lock: admit and evict write the pool in place, so an
@@ -326,15 +403,21 @@ def save_server(
             n_sessions=len(meta["sessions"]),
             asynchronous=saver is not None,
         )
+    writes = _writes(server)
     if saver is None:
-        return store.save(
+        final = os.path.join(directory, f"step_{step:08d}")
+        if writes:
+            final = store.save(
+                directory, step, host_tree, n_shards=n_shards,
+                extra_meta={"serve": meta},
+            )
+        _wait_for_writer(server)
+        return final
+    if writes:
+        saver.save_host(
             directory, step, host_tree, n_shards=n_shards,
             extra_meta={"serve": meta},
         )
-    saver.save_host(
-        directory, step, host_tree, n_shards=n_shards,
-        extra_meta={"serve": meta},
-    )
     return None
 
 
@@ -361,7 +444,9 @@ def restore_server(
     config would un-pin the bitwise replay contract).  ``server=None``
     constructs a fresh :class:`StreamServer` from the recorded config;
     passing one (e.g. pre-built with ``prewarm=True``) requires an
-    identical config and no live sessions.
+    identical config and no live sessions.  A stream-sharded server is
+    restored by passing a fresh one on the mesh, on every rank: each
+    reads the whole directory and keeps its own slots.
 
     With ``step=None`` a damaged newest step (crashed save, concurrent
     gc) falls back to the previous complete one, exactly like
@@ -429,9 +514,15 @@ def _restore_one(
             )
         srv = server
     pools = _tier_pools(srv)
+    shard = _shard(srv)
+
+    def whole(x):  # a leaf of the checkpoint's (mesh=None) slot tree
+        if shard is None:
+            return x
+        return store.LeafSpec((srv.pool.capacity, *x.shape[1:]), x.dtype)
 
     like = {
-        "tiers": [p.states for p in pools],
+        "tiers": [tree_map(whole, p.states) for p in pools],
         "queues": {
             f"q{i:04d}": [_chunk_struct(spec) for spec in sess["queue_spec"]]
             for i, sess in enumerate(meta["sessions"])
@@ -448,16 +539,18 @@ def _restore_one(
         for p, st in zip(pools, tree["tiers"]):
             for buf, x in zip(store._flatten_with_paths(p.states),
                               store._flatten_with_paths(st)):
-                buf[1].copy_(x[1])
+                buf[1].copy_(x[1] if shard is None else shard.rows(x[1]))
             p.session_at = [None] * p.capacity
             p._slot_of = {}
         queued = {
             name: [
                 SensorChunk(*(None if f is None else f.to(srv.device)
                               for f in c))
+                if shard is None or shard.owns(sess["slot"]) else None
                 for c in chunks
             ]
-            for name, chunks in tree["queues"].items()
+            for (name, chunks), sess in zip(tree["queues"].items(),
+                                            meta["sessions"])
         }
     for p, gens in zip(pools, meta["host_generation"]):
         p._host_generation = [int(g) for g in gens]
@@ -467,7 +560,8 @@ def _restore_one(
     # chunks are re-stamped with it so a staleness deadline never sheds
     # them on the first post-restore tick.
     tick_now = int(meta["counters"]["n_ticks"])
-    zero_src: Optional[SensorChunk] = None
+    zero_src: Optional[SensorChunk] = next(
+        (c for chunks in tree["queues"].values() for c in chunks), None)
     for i, sess in enumerate(meta["sessions"]):
         sid = _decode_sid(sess["sid"])
         tier, local = sess["tier"], sess["slot"]
@@ -478,8 +572,6 @@ def _restore_one(
         q = ChunkQueue(config.queue_depth, policy=config.queue_policy)
         for chunk in queued[f"q{i:04d}"]:
             q._q.append((chunk, now, tick_now))
-            if zero_src is None:
-                zero_src = chunk
         qc = sess["queue_counters"]
         q.n_pushed = qc["n_pushed"]
         q.n_overflow = qc["n_overflow"]
@@ -507,7 +599,8 @@ def _restore_one(
 
     if zero_src is not None:
         srv._zero_chunk = SensorChunk(
-            *(None if x is None else torch.zeros_like(x) for x in zero_src)
+            *(None if x is None else torch.zeros_like(x, device=srv.device)
+              for x in zero_src)
         )
     # (else: the first post-restore submit sets it, as on a live server)
 
@@ -619,16 +712,20 @@ class ServeCheckpointer:
         self._last_saved_tick = step
         self.n_saves += 1
         # Complete steps only — the in-flight one is invisible to gc.
-        store.gc_old(self.directory, self.keep)
+        if _writes(self.server):
+            store.gc_old(self.directory, self.keep)
 
     def wait(self) -> None:
         """Block until the in-flight save (if any) lands; re-raises a
         background write failure.  Runs a final gc pass — during
         operation the save-time gc cannot see the still-in-flight step,
-        so up to ``keep + 1`` complete steps may briefly coexist."""
+        so up to ``keep + 1`` complete steps may briefly coexist.  On a
+        stream mesh every rank calls it, and it returns once the writing
+        rank's save has landed."""
         self.saver.wait()
-        if self.n_saves:
+        if self.n_saves and _writes(self.server):
             store.gc_old(self.directory, self.keep)
+        _wait_for_writer(self.server)
 
     def restore(
         self,

@@ -205,13 +205,14 @@ def _local_bytes_match(tree, specs, mesh) -> bool:
 def _train_case(rank, world, case):
     """One step of ``jit_train_step`` on a ``case["mesh"]`` (data, model)
     mesh from whole numpy trees; the whole parameters, moments and
-    metrics after it."""
+    metrics after it, and the collectives the step issued (``Recorder``)."""
     import torch
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import train
+    from repro_torch.launch.hloparse import Recorder
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
 
@@ -225,8 +226,10 @@ def _train_case(rank, world, case):
         model, mesh, adamw.AdamWConfig(lr=case["lr"]),
         shape_spec=ShapeSpec("x", "train", s, b), accum=case["accum"],
         warmup_steps=case["warmup"], total_steps=case["total"])
-    p, o, m = step_fn(params, adamw.init(params), batch, case["step"])
-    out = {"bytes": _local_bytes_match(p, specs["params"], mesh)
+    with Recorder() as rec:
+        p, o, m = step_fn(params, adamw.init(params), batch, case["step"])
+    out = {"records": [tuple(r) for r in rec.records],
+           "bytes": _local_bytes_match(p, specs["params"], mesh)
            and _local_bytes_match(o.mu, specs["opt"].mu, mesh)
            and _local_bytes_match(o.nu, specs["opt"].nu, mesh),
            "metrics": {k: float(v) for k, v in m.items()}}
@@ -424,4 +427,57 @@ def sharded_serve_suite(rank, world, payload):
         api.StreamPool(comp, 3, mesh=mesh)
     except ValueError as e:
         errors["pool_divide"] = str(e)
+    out.update(_sharded_checkpoint(rank, payload, mesh, sharded, local))
+    return out
+
+
+def _sharded_checkpoint(rank, payload, mesh, sharded, local):
+    """One more chunk queued on every live stream of both servers; the
+    sharded server saved (every rank), once by ``save_server`` and once
+    through a ``ServeCheckpointer`` (the write on rank 0's thread), and
+    the mesh=None one (rank 0); the checkpointer's step restored into a
+    fresh sharded server, and one tick of all three: whether the restored
+    server's streams are bitwise the uninterrupted sharded run's and the
+    mesh=None run's."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.core import pipeline as P
+    from repro_torch.serve import ServerConfig, StreamServer
+    from repro_torch.serve import checkpoint as CK
+
+    more = {0: payload["chunks"][0][1], 2: payload["chunks"][2][1],
+            "fresh": payload["chunks"][1][1]}
+    for srv in (sharded, local):
+        for sid, c in more.items():
+            srv.submit(sid, api.SensorChunk(*(_t(x) for x in c)))
+    root = payload["ckpt"]
+    path = CK.save_server(os.path.join(root, "sharded"), sharded.n_ticks,
+                          sharded)
+    if rank == 0:
+        CK.save_server(os.path.join(root, "local"), local.n_ticks, local)
+    dist.barrier()
+    ckpt = CK.ServeCheckpointer(os.path.join(root, "async"), sharded,
+                                every_ticks=1, keep=1)
+    ckpt.save_now()
+    fresh = StreamServer(
+        api.EPICCompressor(P.EPICConfig(**payload["cfg"]), device="cpu"),
+        ServerConfig(**payload["server"]), mesh=mesh)
+    restored = ckpt.restore(fresh.compressor, server=fresh).server
+    for srv in (sharded, restored, local):
+        srv.tick()
+    out = {"ckpt_path": path}
+    for sid in (0, 2, "fresh"):
+        states = [pytree.tree_leaves(s.state(sid))
+                  for s in (restored, sharded, local)]
+        out[f"restored/{sid}"] = all(
+            len(a) == len(states[0])
+            and all(torch.equal(x, y) for x, y in zip(a, states[0]))
+            for a in states[1:]) and len({
+                tuple(s.telemetry(sid).k_trajectory)
+                for s in (restored, sharded, local)}) == 1
+    out["restored_counters"] = (restored.server_counters(),
+                                sharded.server_counters())
     return out

@@ -35,11 +35,16 @@ Tolerances, as each case states:
   * ``jit_prefill``/``jit_decode_step`` on (data 2, model 1): the logits
     within 1e-5 of ``mesh=None`` (``test_torch_efm.py``'s F32_TOL);
   * ``restore(shardings=)``: a checkpoint saved from (2, 2) restores
-    bitwise onto (4, 1) and onto no mesh.
+    bitwise onto (4, 1) and onto no mesh;
+  * the collectives each rank's train step issues (``launch.hloparse.
+    Recorder``) equal, op for op (name, bytes, group size, order), the
+    dry-run's records of the same step on meta tensors on a fake world of
+    four ranks (``launch.dryrun.lower``/``trace``, in a subprocess).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -289,6 +294,52 @@ def test_jit_train_step_matches_the_unsharded_reference(name, ranks,
 @pytest.mark.parametrize("name", list(TRAIN))
 def test_each_ranks_local_bytes_are_the_specs(name, ranks):
     assert all(r[f"train/{name}"]["bytes"] for r in ranks)
+
+
+# The dry-run's records of each TRAIN step: meta tensors placed by the
+# specs on a fake world of four ranks, the same mesh, batch and accum.
+_META_RECORDS = textwrap.dedent("""
+    import json, sys, warnings
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+    warnings.simplefilter("ignore")
+    out = {}
+    for name, (arch, kw, mesh, accum, b, s) in json.loads(
+            sys.argv[1]).items():
+        cfg = get_smoke_config(arch).replace(train_accum=accum, **kw)
+        with D.fake_world(4):
+            m = init_device_mesh("cpu", tuple(mesh),
+                                 mesh_dim_names=("data", "model"))
+            got = D.trace(D.lower(build_model(cfg, device="meta"),
+                                  ShapeSpec("x", "train", s, b), m))
+        out[name] = [list(r) for r in got["records"]]
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def meta_records(payload):
+    cases = {name: (case["arch"], case["cfg"], case["mesh"], case["accum"],
+                    *case["batch"]["tokens"].shape)
+             for name, case in payload["train"].items()}
+    env = dict(_SUB_ENV, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _META_RECORDS,
+                        json.dumps(cases)], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_recorded_collectives_are_the_dry_runs_op_for_op(name, ranks,
+                                                          meta_records):
+    want = [tuple(r) for r in meta_records[name]]
+    assert any(op == "all-gather" for op, _, _ in want), want
+    for r in ranks:
+        assert r[f"train/{name}"]["records"] == want
 
 
 # ---------------------------------------------------------------------------

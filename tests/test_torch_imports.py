@@ -327,3 +327,22 @@ def test_the_launch_layer_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_the_dry_run_imports_without_jax():
+    """``launch.dryrun`` and ``launch.hloparse`` (the reference's set
+    ``XLA_FLAGS`` and import JAX): neither imports JAX or the JAX
+    package, and importing the dry-run touches no process group."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.hloparse\n"
+            "assert sys.modules['jax'] is None\n"
+            "assert not dist.is_initialized()\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=_SUB_ENV, cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
