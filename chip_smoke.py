@@ -276,12 +276,31 @@ and prints no result line):
    the ``mesh=None`` server's (the manifest's ``time`` and the scheduler's
    measured costs aside, every npz member), restored into a fresh sharded
    server and ticked, bitwise the uninterrupted runs.
-   (c) ``jit_prefill`` and ``jit_decode_step`` of TinyLlama-1.1B bf16 on
-   the mesh with ``attn_backend="pallas"``: 4 x 1024 and 8 greedy tokens,
-   the logits bitwise ``mesh=None``'s, 22 flash launches a prefill.  (d)
-   ``moe_ffn`` with ``moe_impl="ep"`` on the one-rank mesh returns to the
-   sort path (``moe_ffn_ep`` gives ``None`` at ``n_ep == 1``): bitwise
-   ``moe_ffn_sort``'s output at DeepSeek-V2-Lite-16B's width.  20a also
+   (c) ``jit_prefill`` and ``jit_decode_step`` of the four dense
+   architectures (TinyLlama-1.1B, OLMo-1B, Qwen2.5-3B, Phi-4-mini) at
+   published width and depth, bf16 with ``attn_backend="pallas"``, on the
+   mesh: the tensor-parallel path (parameters DTensors placed by
+   ``param_specs``, each rank on its blocks), 4 x 1024 and 8 greedy
+   tokens, the logits bitwise ``mesh=None``'s, ``n_layers`` flash
+   launches a prefill (0 in decode), ``DTensor.full_tensor`` raising
+   inside every step and no parameter-sized collective recorded; the
+   prefill's peak memory above what was allocated before it, beside
+   ``mesh=None``'s.  Beside each decode, the same steps on the
+   flash-decoding layout (a one-rank ``TensorParallel`` with
+   ``cache_seq=True``: the combine of partial softmaxes that a model axis
+   of 2 and more runs where kv heads do not divide), within
+   ``BF16_LOGIT_TOL`` of ``mesh=None``.  And TinyLlama-1.1B under
+   ``shard_strategy="fsdp"``, the gathered path the five other families
+   take on a mesh: bitwise ``mesh=None``, 22 flash launches a prefill.
+   (d) ``moe_ffn`` with
+   ``moe_impl="ep"`` on the one-rank mesh returns to the sort path
+   (``moe_ffn_ep`` gives ``None`` at ``n_ep == 1``): bitwise
+   ``moe_ffn_sort``'s output at DeepSeek-V2-Lite-16B's width.  (e) The
+   flash kernel at the local shapes tensor parallelism gives each dense
+   architecture at model 2, 4, 8 and 16 (q (4, heads on the rank, 1024,
+   D), the kv heads as the last rank reads them, a slice of those it
+   holds), bf16, against its plain version to phase 5's tolerance, and
+   timed beside its bound.  20a also
    reads, for phase 21b, the bytes placing 19a's parameters and moments
    asks the allocator for and one step's peak from them.
 21. The dry-run, in a process of its own (``chip_smoke.py --dryrun``,
@@ -298,8 +317,8 @@ and prints no result line):
 
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
-main path, with the launches of phase 7's prefill and phase 18's bf16 VLM
-prefill and SeamlessM4T forward; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
+main path, with the launches of phase 7's prefill, phase 18's bf16 VLM
+prefill and SeamlessM4T forward and phase 20c's five sharded prefills; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
 float32, with the launches of phase 7's float32 prefill and of phase
 18's float32 ``"pallas"`` VLM prefill and SeamlessM4T forward; and
 ``flash_attention_pallas/tf32_d160``, the same kernel in bf16 at head dim
@@ -496,6 +515,10 @@ TRAIN_TOL = 1e-4
 DIST_STEPS = 4
 DIST_SLOTS, DIST_CHUNKS, DIST_CHURN_AT = 8, 4, 2
 DIST_EP_TOKENS = (2, 512)
+# Phase 20c-e: the dense family served tensor-parallel; 20e holds the
+# flash kernel at the local shapes of these model-axis widths.
+DENSE_ARCHS = ("tinyllama-1.1b", "olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b")
+TP_MODEL_AXES = (2, 4, 8, 16)
 # Phase 21: the dry-run's full-width cells (arch, shape, multi-pod mesh).
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
                 ("qwen2.5-3b", "prefill_32k", False),
@@ -4302,55 +4325,238 @@ def dist_serve_checkpoint(torch, device, models, mesh, local, sharded,
           f"bitwise the uninterrupted sharded and mesh=None runs")
 
 
-def phase_dist_efm(torch, device, mesh, card):
-    """(c) ``jit_prefill``/``jit_decode_step`` on the mesh against
-    ``mesh=None``, TinyLlama-1.1B bf16 on the flash kernel."""
+def dist_efm_arch(torch, device, mesh, card, arch):
+    """Phase 20c for one dense architecture; returns the sharded
+    prefill's flash launches."""
+    from torch.utils import _pytree as pytree
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.hloparse import Recorder
     from repro_torch.models import build_model
     from repro_torch.serve import efm
 
-    cfg = get_config(EFM_ARCH).replace(attn_backend="pallas",
-                                       param_dtype="bfloat16",
-                                       compute_dtype="bfloat16")
+    cfg = get_config(arch).replace(attn_backend="pallas",
+                                   param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
     model = build_model(cfg, device=device)
-    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    whole_params = model.init(torch.Generator(device=device).manual_seed(SEED))
     tokens = zoo_tokens(torch, device, cfg.vocab)
     b, s = tokens.shape
     batch = {"tokens": tokens}
-    prefill, _ = efm.jit_prefill(model, mesh, ShapeSpec("p", "prefill", s, b))
+    prefill, specs = efm.jit_prefill(model, mesh,
+                                     ShapeSpec("p", "prefill", s, b))
     decode, _ = efm.jit_decode_step(model, mesh,
                                     ShapeSpec("d", "decode", s + ZOO_NEW, b))
+    params = S.place_tree(whole_params, S.named(mesh, specs["params"]))
+    param_bytes = {x.numel() * x.element_size()
+                   for x in pytree.tree_leaves(whole_params)}
     plain_prefill, plain_decode = efm.jit_prefill(model), \
         efm.jit_decode_step(model)
     flash = kernel_wrappers()["flash_attention_pallas"]
-    plain_prefill(params, batch)  # warm-up
+
+    def peak(fn):
+        """``fn()`` and the most memory it held above what was allocated
+        before it (the other run's results stay alive)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - before
+
+    plain_prefill(whole_params, batch)  # warm-up
+    (ref_logits, ref_cache), ref_peak = peak(
+        lambda: plain_prefill(whole_params, batch))
     flash.launches = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, batch)
-    torch.cuda.synchronize()
+    with S.full_tensor_refused(), Recorder() as rec:
+        (logits, cache), tp_peak = peak(lambda: prefill(params, batch))
     t_prefill = time.perf_counter() - t0
     n_flash = flash.launches
-    ref_logits, ref_cache = plain_prefill(params, batch)
+    records = list(rec.records)
     _need(torch.equal(logits.full_tensor(), ref_logits),
-          "20c: the sharded prefill's logits differ from mesh=None's")
-    _need(n_flash == cfg.n_layers, f"20c: {n_flash} flash launches in the "
-          f"sharded prefill, not {cfg.n_layers}")
+          f"20c {arch}: the sharded prefill's logits differ from mesh=None's")
+    _need(n_flash == cfg.n_layers, f"20c {arch}: {n_flash} flash launches "
+          f"in the sharded prefill, not {cfg.n_layers}")
     state = efm.pad_for_decode(model, whole(torch, cache), ZOO_NEW)
     ref_state = efm.pad_for_decode(model, ref_cache, ZOO_NEW)
+    # The flash-decoding layout (a cache split over its positions; the
+    # model axis of 2 and more takes it where kv heads do not divide) on
+    # the one rank, in bf16: its softmax sums in another order.
+    seq_state = pytree.tree_map(torch.clone, ref_state)
+    seq_tp = M.tensor_parallel(mesh, S.model_sharded(specs["params"]),
+                               cache_seq=True)
+    local_params = S.local_blocks(params, S.named(mesh, specs["params"]))
+    seq_err = 0.0
+    del cache, ref_cache
+    tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
+    for i in range(ZOO_NEW):
+        with S.full_tensor_refused(), Recorder() as rec:
+            lg, state = decode(params, state, tok, s + i)
+        records += rec.records
+        rlg, ref_state = plain_decode(whole_params, ref_state, tok, s + i)
+        _need(torch.equal(lg.full_tensor(), rlg),
+              f"20c {arch}: decode step {i} differs from mesh=None")
+        with torch.no_grad(), M.use_mesh(mesh, (), seq_tp):
+            slg, seq_state = model.decode_step(local_params, seq_state, tok,
+                                               s + i)
+        seq_err = max(seq_err, float((slg - rlg).abs().max()))
+        tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
+    _need(seq_err <= BF16_LOGIT_TOL, f"20c {arch}: the flash-decoding "
+          f"layout's logits differ from mesh=None's by {seq_err}")
+    del seq_state, local_params
+    _need(flash.launches == n_flash,
+          f"20c {arch}: {flash.launches - n_flash} flash launches in decode")
+    carried = [r for r in records if r.nbytes in param_bytes]
+    _need(not carried, f"20c {arch}: parameter-sized collectives {carried}")
+    print(f"[20c] {arch} bf16 attn_backend='pallas', tensor-parallel on the "
+          f"one-rank mesh: prefill {b}x{s} ({n_flash} flash launches, "
+          f"{t_prefill * 1e3:.2f} ms) and {ZOO_NEW} greedy tokens, logits "
+          f"bitwise mesh=None's; {len(records)} collectives recorded, none "
+          f"parameter-sized; decode on the flash-decoding layout: max|d "
+          f"logits| {seq_err:.4g} (tol {BF16_LOGIT_TOL}); the prefill's "
+          f"peak above its inputs "
+          f"{tp_peak / 2**30:.3f} GiB beside mesh=None's "
+          f"{ref_peak / 2**30:.3f} GiB ({card})")
+    return n_flash
+
+
+def dist_efm_gathered(torch, device, mesh, card):
+    """Phase 20c's gathered path: TinyLlama-1.1B under ``shard_strategy
+    "fsdp"``, whose steps gather every parameter whole, as the five other
+    families' do; returns the sharded prefill's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.serve import efm
+
+    cfg = get_config(EFM_ARCH).replace(
+        attn_backend="pallas", param_dtype="bfloat16",
+        compute_dtype="bfloat16", shard_strategy="fsdp")
+    model = build_model(cfg, device=device)
+    whole_params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    tokens = zoo_tokens(torch, device, cfg.vocab)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    prefill, specs = efm.jit_prefill(model, mesh,
+                                     ShapeSpec("p", "prefill", s, b))
+    decode, _ = efm.jit_decode_step(model, mesh,
+                                    ShapeSpec("d", "decode", s + ZOO_NEW, b))
+    params = S.place_tree(whole_params, S.named(mesh, specs["params"]))
+    plain_prefill = efm.jit_prefill(model)
+    plain_decode = efm.jit_decode_step(model)
+    flash = kernel_wrappers()["flash_attention_pallas"]
+    plain_prefill(whole_params, batch)  # warm-up
+    flash.launches = 0
+    logits, cache = prefill(params, batch)
+    n_flash = flash.launches
+    ref_logits, ref_cache = plain_prefill(whole_params, batch)
+    _need(torch.equal(logits.full_tensor(), ref_logits),
+          "20c gathered: the sharded prefill's logits differ from mesh=None's")
+    _need(n_flash == cfg.n_layers, f"20c gathered: {n_flash} flash launches "
+          f"in the sharded prefill, not {cfg.n_layers}")
+    state = efm.pad_for_decode(model, whole(torch, cache), ZOO_NEW)
+    ref_state = efm.pad_for_decode(model, ref_cache, ZOO_NEW)
+    del cache, ref_cache
     tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
     for i in range(ZOO_NEW):
         lg, state = decode(params, state, tok, s + i)
-        rlg, ref_state = plain_decode(params, ref_state, tok, s + i)
+        rlg, ref_state = plain_decode(whole_params, ref_state, tok, s + i)
         _need(torch.equal(lg.full_tensor(), rlg),
-              f"20c: decode step {i} differs from mesh=None")
+              f"20c gathered: decode step {i} differs from mesh=None")
         tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
         state = whole(torch, state)
-    print(f"[20c] {EFM_ARCH} bf16 attn_backend='pallas' on the mesh: "
-          f"prefill {b}x{s} ({n_flash} flash launches, {t_prefill * 1e3:.2f}"
-          f" ms) and {ZOO_NEW} greedy tokens, logits bitwise mesh=None's "
-          f"({card})")
+    print(f"[20c] {EFM_ARCH} bf16 attn_backend='pallas', shard_strategy "
+          f"'fsdp' (the gathered path) on the mesh: prefill {b}x{s} "
+          f"({n_flash} flash launches) and {ZOO_NEW} greedy tokens, logits "
+          f"bitwise mesh=None's ({card})")
+    return n_flash
+
+
+def phase_dist_efm(torch, device, mesh, card):
+    """(c) ``jit_prefill``/``jit_decode_step`` of the four dense
+    architectures on the mesh against ``mesh=None``, bf16 on the flash
+    kernel, and of TinyLlama-1.1B on the gathered path; returns the
+    sharded prefills' flash launches."""
+    n = dist_efm_gathered(torch, device, mesh, card)
+    torch.cuda.empty_cache()
+    for arch in DENSE_ARCHS:
+        n += dist_efm_arch(torch, device, mesh, card, arch)
+        torch.cuda.empty_cache()
+    return n
+
+
+def tp_flash_shapes(cfg, model_axis):
+    """The flash call one rank of a ``model_axis``-wide model axis makes in
+    the dense family's tensor-parallel prefill (``models/layers.py``):
+    ``(hq, kv heads the rank holds, (k0, k1) of them its heads read, head
+    dim, kv heads the kernel sees)`` on the axis's last rank (the largest
+    offsets)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import build_model, layers
+
+    mesh = M.AbstractMesh((1, model_axis), ("data", "model"))
+    specs = S.param_specs(cfg, build_model(cfg, device="meta").param_spec(),
+                          mesh)
+    tp = SimpleNamespace(size=model_axis, rank=model_axis - 1, group=None,
+                         sharded=S.model_sharded(specs), cache_seq=False)
+    d, h, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    whole_heads = "wq" in tp.sharded and h % model_axis == 0
+    hq = h // model_axis if whole_heads else h
+    held = hkv // model_axis if "wk" in tp.sharded else hkv
+    marks = torch.arange(held).reshape(1, held, 1, 1)
+    h0 = tp.rank * hq if whole_heads else 0
+    kk, _ = layers._kv_heads(tp, marks, marks, h0, hq, h, hkv)
+    return hq, held, (int(kk[0, 0]), int(kk[0, -1]) + 1), d, kk.shape[1]
+
+
+def phase_dist_flash_shapes(torch, device, card):
+    """(e) The flash kernel at the local shapes tensor parallelism gives
+    each dense architecture at model 2, 4, 8 and 16, in the models'
+    layout (the rank's kv heads a slice of those it holds), against its
+    plain version; times beside the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_pallas, flash_attention_plain)
+
+    out = []
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        for m in TP_MODEL_AXES:
+            hq, held, (k0, k1), d, hkv = tp_flash_shapes(cfg, m)
+            g = torch.Generator(device=device).manual_seed(SEED + m)
+            b, s = EFM_BATCH, EFM_PROMPT
+            q = torch.randn(b, s, hq * d, generator=g, device=device).to(
+                torch.bfloat16).view(b, s, hq, d).transpose(1, 2)
+            k, v = (torch.randn(b, s, held * d, generator=g, device=device)
+                    .to(torch.bfloat16).view(b, s, held, d).transpose(1, 2)
+                    [:, k0:k1] for _ in range(2))
+            _need(k1 - k0 == hkv, f"20e {arch} model {m}: no run of kv heads"
+                  f" serves the rank's query heads")
+            got = flash_attention_pallas(q, k, v, causal=True)
+            want = flash_attention_plain(q, k, v, causal=True)
+            err = float((got.float() - want.float()).abs().max())
+            _need(bool(torch.isfinite(got).all()) and err <= FA_TOL[
+                "bfloat16"], f"20e {arch} model {m}: kernel vs plain {err}")
+            ms = device_ms(torch, lambda: flash_attention_pallas(
+                q, k, v, causal=True), per_graph=10, replays=10)
+            bound, by, _ = fa_bound(b, hq, hkv, s, d, True, 2,
+                                    BF16_FLOP_PER_S)
+            out.append((arch, m, hq, hkv, ms))
+            print(f"[20e] flash {arch} model {m}: q {(b, hq, s, d)} bf16, "
+                  f"kv heads {hkv} (of {held} held, {k0}:{k1}), max|err| "
+                  f"{err:.3g} (tol {FA_TOL['bfloat16']}), {ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by}) ({card})")
+    return out
 
 
 def phase_dist_ep(torch, device, mesh):
@@ -4398,8 +4604,9 @@ def dist_main() -> int:
         torch.cuda.empty_cache()
         phase_dist_serve(torch, device, card)
         torch.cuda.empty_cache()
-        phase_dist_efm(torch, device, mesh, card)
+        out["flash_launches"] = phase_dist_efm(torch, device, mesh, card)
         torch.cuda.empty_cache()
+        phase_dist_flash_shapes(torch, device, card)
         phase_dist_ep(torch, device, mesh)
     finally:
         dist.destroy_process_group()
@@ -5408,6 +5615,7 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()  # the card's memory to phase 19's process
     dist = phase_dist_process(phase_train_process())
+    launches["flash_attention_pallas"] += dist["flash_launches"]
     phase_dryrun_process(dist, card)
     serve = phase_serve_process()
     errs.update(serve["errs"])

@@ -3,7 +3,8 @@
 (Mamba-2 SSD, RWKV6), with the paths that run them, on one CUDA card.
 
     python3 scripts/time_port_paths.py [--src DIR] [--label NAME]
-        [--paths rm,int8,solo,ssd,rwkv] [--prefills N] [--sessions N]
+        [--paths rm,int8,solo,ssd,rwkv,efm] [--prefills N] [--sessions N]
+        [--decodes N]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so that two trees, say a parent commit unpacked beside this one and this
@@ -60,7 +61,13 @@ Prints the card's name and power limit, then one JSON line:
 * ``rwkv_ms`` / ``rwkv_max_abs_err``: ``rwkv6_scan_pallas`` at r (4, 40,
   1024, 64) bf16 in the model's (B, T, H, K) layout, chunk 32, and its
   largest difference from ``rwkv6_scan_chunked``; ``rwkv_prefill_*``: the
-  same as for the SSD, for RWKV6-3B (kernels whose name holds ``rwkv``).
+  same as for the SSD, for RWKV6-3B (kernels whose name holds ``rwkv``);
+* ``efm_decode_ms_step``: ``chip_smoke.py`` phase 7's bf16 ``"pallas"``
+  run (TinyLlama-1.1B, ``mesh=None``, 4 prompts of 1024 seeded token
+  ids, seeded random weights): ``greedy_decode_loop`` of 32 tokens after
+  one prefill, host clock over the loop divided by its steps, for each of
+  ``--decodes`` runs after a warm-up run, each from a fresh copy of the
+  prefill's padded cache.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ def main() -> int:
     parser.add_argument("--prefills", type=int, default=3)
     parser.add_argument("--paths", default="int8,ssd,rwkv")
     parser.add_argument("--sessions", type=int, default=5)
+    parser.add_argument("--decodes", type=int, default=5)
     args = parser.parse_args()
     paths = set(args.paths.split(","))
 
@@ -102,7 +110,8 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
     from repro_torch.models import build_model
-    from repro_torch.serve.efm import jit_prefill
+    from repro_torch.serve.efm import (greedy_decode_loop, jit_prefill,
+                                       pad_for_decode)
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -252,6 +261,31 @@ def main() -> int:
         scan("rwkv", smoke.rwkv_inputs, rwkv6_scan_pallas, rwkv6_scan_chunked,
              smoke.RWKV_FULL, torch.bfloat16)
         prefill("rwkv", "rwkv6-3b", "rwkv")
+    if "efm" in paths:
+        cfg = get_config(smoke.EFM_ARCH).replace(
+            attn_backend="pallas", param_dtype="bfloat16",
+            compute_dtype="bfloat16", cache_dtype="bfloat16")
+        model = build_model(cfg, device=device)
+        params = model.init(
+            torch.Generator(device=device).manual_seed(smoke.SEED))
+        rng = np.random.default_rng(smoke.SEED)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (smoke.EFM_BATCH, smoke.EFM_PROMPT)),
+            device=device)}
+        logits, cache = jit_prefill(model)(params, batch)
+        first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        walls = []
+        for _ in range(1 + args.decodes):
+            state = pad_for_decode(model, cache, smoke.EFM_NEW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            greedy_decode_loop(model, params, state, first, smoke.EFM_PROMPT,
+                               smoke.EFM_NEW)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / smoke.EFM_NEW)
+        out["efm_decode_ms_step"] = walls[1:]  # the first warms up
+        del params, model, cache, state
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

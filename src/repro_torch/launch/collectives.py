@@ -12,6 +12,14 @@ adjoint (the gradient of the sum of every rank's loss):
 * :func:`all_reduce_mean`: ``jax.lax.pmean``; its adjoint is the mean of
   the cotangents.
 
+and, for serving (no autograd; ``models/layers.py``'s tensor-parallel
+paths), :func:`all_reduce_sum` and :func:`all_reduce_max`: every rank's
+``x`` summed (or its largest value taken) element by element, in ``x``'s
+dtype (the callers say which they pass).  They, and :func:`all_gather`,
+are each one ``torch.distributed`` call (so ``launch.hloparse.Recorder``
+records it, on meta tensors under the dry-run's fake group too), and the
+identity on a group of one rank, which issues none.
+
 A collective that fails raises (``torch.distributed``'s own errors).
 """
 
@@ -54,6 +62,8 @@ def all_to_all(x: Tensor, group, split_axis: int, concat_axis: int) -> Tensor:
 
 
 def _gather(x: Tensor, group, dim: int) -> Tensor:
+    if dist.get_world_size(group) == 1:
+        return x
     return torch.cat(gather_blocks(x, group).unbind(0), dim=dim)
 
 
@@ -105,3 +115,22 @@ class _AllReduceMean(torch.autograd.Function):
 
 def all_reduce_mean(x: Tensor, group) -> Tensor:
     return _AllReduceMean.apply(x, group)
+
+
+def _all_reduce(x: Tensor, group, op) -> Tensor:
+    if dist.get_world_size(group) == 1:
+        return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def all_reduce_sum(x: Tensor, group) -> Tensor:
+    """The group's ``x`` summed, in ``x``'s dtype (a new tensor)."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: Tensor, group) -> Tensor:
+    """The group's ``x``, largest element by element (a new tensor)."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
+

@@ -18,7 +18,9 @@ The ambient mesh is the counterpart of the reference's ``with mesh:``:
 ``models.layers.ambient_mesh_axes`` and ``models.moe.moe_ffn_ep`` read it
 (:func:`current`).  It also records which mesh axes split the batch rows
 of the tensors the model code sees on this rank (``batch_axes``), since
-each rank runs the family's code on its own rows.
+each rank runs the family's code on its own rows, and, for the dense
+family's serving steps, the :class:`TensorParallel` plan by which the
+layers compute on each rank's parameter blocks (``tp``).
 
 A process group whose backend does not match the device raises: NCCL for
 the card, gloo for ``device="cpu"``.
@@ -29,7 +31,8 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, FrozenSet, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -227,12 +230,44 @@ def axes_size(mesh, names) -> int:
 # ---------------------------------------------------------------------------
 
 
+class TensorParallel(NamedTuple):
+    """Tensor parallelism over the mesh's ``"model"`` axis, as the dense
+    family's serving steps run it (``serve/efm.py``): each rank holds the
+    blocks its parameters' specs give it and computes on them, and the
+    layers (``models/layers.py``) issue the collectives over ``group``."""
+
+    group: Any  # the process group over "model"
+    size: int  # ranks on "model"
+    rank: int  # this rank's index on "model"
+    # The parameter owners ("wq", "down", "embed", ...) whose block on
+    # this rank is a shard over "model"; the others are whole.
+    sharded: FrozenSet[str]
+    # Whether the serve cache is split over its sequence on "model" (the
+    # flash-decoding layout) rather than over its kv heads or not at all.
+    cache_seq: bool
+
+
+def tensor_parallel(mesh: DeviceMesh, sharded, cache_seq: bool = False
+                    ) -> TensorParallel:
+    """The :class:`TensorParallel` of this rank on ``mesh``'s ``"model"``
+    axis (a mesh without one is a model axis of 1)."""
+    if "model" not in mesh_axes(mesh):
+        return TensorParallel(None, 1, 0, frozenset(sharded), cache_seq)
+    return TensorParallel(axis_group(mesh, ("model",)),
+                          mesh_shape(mesh)["model"],
+                          mesh.get_local_rank("model"), frozenset(sharded),
+                          cache_seq)
+
+
 class Ambient(NamedTuple):
     mesh: DeviceMesh
     # Mesh axes that split the batch rows of the activations the model
     # code sees on this rank (major first); () when every rank sees the
     # whole batch.
     batch_axes: Tuple[str, ...]
+    # Set when the model code runs on each rank's parameter blocks (the
+    # dense family's serving steps); None when every weight is whole.
+    tp: Optional[TensorParallel] = None
 
 
 # Process-wide, not per thread: autograd runs a card's backward (and the
@@ -247,10 +282,11 @@ def current() -> Optional[Ambient]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: DeviceMesh,
-             batch_axes: Tuple[str, ...] = ()) -> Iterator[DeviceMesh]:
-    """Make ``mesh`` the ambient mesh (the reference's ``with mesh:``)."""
-    _STACK.append(Ambient(mesh, tuple(batch_axes or ())))
+def use_mesh(mesh: DeviceMesh, batch_axes: Tuple[str, ...] = (),
+             tp: Optional[TensorParallel] = None) -> Iterator[DeviceMesh]:
+    """Make ``mesh`` the ambient mesh (the reference's ``with mesh:``);
+    with ``tp`` the model code runs tensor-parallel on it."""
+    _STACK.append(Ambient(mesh, tuple(batch_axes or ()), tp))
     try:
         yield mesh
     finally:

@@ -40,9 +40,10 @@ reference's ``"layers/attn/wq/w"``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 from torch.distributed.tensor import Replicate, Shard
 from torch.utils import _pytree as pytree
@@ -108,6 +109,15 @@ def _n_stack(ps: str) -> int:
     return 0
 
 
+def _name_owner(path_str: str) -> Tuple[str, str]:
+    """A parameter's leaf name and owner: leaf tensors are
+    ``.../<module>/w|b`` (owned by the module) or a bare named tensor."""
+    parts = path_str.split("/")
+    name = parts[-1]
+    return name, (parts[-2] if len(parts) >= 2 and name in ("w", "b")
+                  else name)
+
+
 def param_spec(cfg: ModelConfig, path_str: str, shape: Tuple[int, ...],
                mesh) -> P:
     model = _axis_size(mesh, "model")
@@ -115,15 +125,12 @@ def param_spec(cfg: ModelConfig, path_str: str, shape: Tuple[int, ...],
     ns = _n_stack(path_str)
     if cfg.shard_strategy == "dp":
         return P()  # replicated weights; batch over every mesh axis
+    name, owner = _name_owner(path_str)
     if cfg.shard_strategy == "fsdp":
         # Embeddings keep the vocab->model rule (see the reference).
-        parts_ = path_str.split("/")
-        name_ = parts_[-1]
-        owner_ = parts_[-2] if len(parts_) >= 2 and name_ in ("w", "b") \
-            else name_
-        if owner_ == "embed" or name_ == "table":
+        if owner == "embed" or name == "table":
             return P("model", None) if shape[0] % model == 0 else P()
-        if owner_ == "lm_head":
+        if owner == "lm_head":
             return P(None, "model") if shape[-1] % model == 0 else P()
         # the largest dim over ("data","model") combined when it divides,
         # else one dim per axis.
@@ -144,10 +151,6 @@ def param_spec(cfg: ModelConfig, path_str: str, shape: Tuple[int, ...],
                     break
         return P(*spec)
     body = shape[ns:]
-    parts = path_str.split("/")
-    # leaf tensors are .../<module>/w|b or a bare named tensor
-    name = parts[-1]
-    owner = parts[-2] if len(parts) >= 2 and name in ("w", "b") else name
 
     def spec(*tail):
         return P(*((None,) * ns + tail))
@@ -399,6 +402,65 @@ def _contiguous(shape) -> Tuple[int, ...]:
         stride.append(acc)
         acc *= n
     return tuple(reversed(stride))
+
+
+def local_blocks(tree: Any, shardings: Any) -> Any:
+    """Each leaf's block on this rank as a plain tensor, by ``shardings``
+    (a :class:`NamedSharding` tree with ``tree``'s keys): a DTensor's
+    local tensor (redistributed first only where its placements differ), a
+    plain tensor's :func:`local_block` (a view: no copy, no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x, s):
+        if isinstance(x, DTensor):
+            return place(x, s).to_local()
+        return local_block(x, s.mesh, s.placements)
+
+    leaves, spec = pytree.tree_flatten(tree)
+    return pytree.tree_unflatten(
+        [one(x, s) for x, s in zip(leaves, leaves_like(tree, shardings))],
+        spec)
+
+
+def model_sharded(spec_tree: Any) -> frozenset:
+    """The owners (``"wq"``, ``"down"``, ``"embed"``, ...) of the leaves
+    whose spec splits a dim over ``"model"``, as :func:`param_spec` names
+    them (``.../<owner>/w|b``, the embedding's ``table`` as ``"embed"``)."""
+    out = set()
+    leaves = pytree.tree_flatten_with_path(spec_tree, is_leaf=is_spec)[0]
+    for path, spec in leaves:
+        if any("model" in spec_axes(e) for e in spec):
+            name, owner = _name_owner(_path_str(path))
+            out.add("embed" if name == "table" else owner)
+    return frozenset(out)
+
+
+@contextlib.contextmanager
+def full_tensor_refused() -> Iterator[None]:
+    """``DTensor.full_tensor`` raising for the ``with`` block: a step run
+    inside it gathers no DTensor whole (the dense family's
+    tensor-parallel serving steps hold to that)."""
+    from torch.distributed.tensor import DTensor
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("DTensor.full_tensor called where nothing may "
+                             "be gathered whole")
+
+    saved = DTensor.full_tensor
+    DTensor.full_tensor = refuse
+    try:
+        yield
+    finally:
+        DTensor.full_tensor = saved
+
+
+def model_block(n: int, tp) -> Tuple[int, int]:
+    """``[lo, hi)`` of a dim of ``n`` that this rank's block covers when
+    the dim is split over ``"model"`` (``tp``: a ``launch.mesh.
+    TensorParallel``): rank ``r`` holds the ``r``-th of ``tp.size`` equal
+    blocks, as :func:`local_block` cuts them."""
+    size = n // tp.size
+    return tp.rank * size, (tp.rank + 1) * size
 
 
 def leaves_like(tree: Any, other: Any) -> list:

@@ -21,6 +21,36 @@ DTensor by a spec.  The model code runs on plain tensors on each rank, so
 the decode-layout hints (in :func:`attention_decode` and
 :func:`cross_attention_decode`, which the VLM and the encoder-decoder
 share) leave them as they are.
+
+Tensor parallelism (the dense family's serving steps): when the ambient
+mesh carries a ``launch.mesh.TensorParallel`` (:func:`tensor_parallel`),
+each parameter is this rank's block of it, as the sharding rules place
+it over ``"model"``, and the layers compute on the blocks (Megatron's
+plan, which GSPMD derives from the same specs in the reference):
+
+* column-parallel projections (``wq/wk/wv``, ``gate/up``, ``lm_head``)
+  give the rank's output columns, with no collective;
+* row-parallel ones (``wo``, ``down``; :func:`linear_row`) multiply the
+  rank's input columns by its rows and all-reduce the partial products,
+  summed in float32, a replicated bias added once after the sum;
+* :func:`embed` looks up the rank's vocabulary range, zeroes the other
+  tokens' rows and all-reduces in the compute dtype (one nonzero term a
+  row: exact); :func:`unembed` and the ``lm_head`` path give the rank's
+  vocabulary of logits, all-gathered in float32 (:func:`gather_vocab`);
+* :func:`attention_full` attends the rank's whole query heads with the kv
+  heads they read (its own when ``n_kv_heads`` divides over ``"model"``,
+  else a slice of the replicated ones); where the heads split mid-head
+  it all-gathers q, attends every head and keeps the columns its block
+  of ``wo``'s rows takes;
+* :func:`attention_decode` does the same against a cache split over kv
+  heads (or whole); against a cache split over its sequence (the
+  flash-decoding layout) each rank attends every head over its slice of
+  the positions, and the partial max, sum and output are combined:
+  all-reduce max, then all-reduce sum, both in float32.
+
+Every collective goes through ``launch/collectives.py`` over the
+``"model"`` group, so ``launch.hloparse.Recorder`` records it; on a
+one-rank model axis each is the identity and issues nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +66,9 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_pallas
+from repro_torch.launch import collectives as C
+from repro_torch.launch import mesh as M
+from repro_torch.launch.sharding import model_block
 
 Params = Dict[str, Any]
 _NEG_INF = -1e30
@@ -77,20 +110,77 @@ def linear(p: Params, x: Tensor, compute_dtype=torch.float32) -> Tensor:
     return y
 
 
+def tensor_parallel():
+    """The ambient mesh's ``launch.mesh.TensorParallel``, or ``None`` when
+    every weight is whole (no mesh, or another family's sharded step)."""
+    amb = M.current()
+    return None if amb is None else amb.tp
+
+
+def _split(tp, owner: str) -> bool:
+    """Whether ``owner``'s weights are this rank's shard over "model"."""
+    return tp is not None and owner in tp.sharded
+
+
+def _sum_over_model(tp, y: Tensor) -> Tensor:
+    """``y``'s partial sums added over the model axis, in float32, cast
+    back to ``y``'s dtype (the identity on one rank)."""
+    if tp.size == 1:
+        return y
+    return C.all_reduce_sum(y.float(), tp.group).to(y.dtype)
+
+
+def linear_row(p: Params, x: Tensor, compute_dtype, owner: str) -> Tensor:
+    """:func:`linear` of a row-parallel projection: under tensor
+    parallelism with ``owner`` split, ``x`` holds the input columns of
+    this rank's rows of ``p["w"]``; the partial products are all-reduced
+    (in float32) and a bias, replicated, is added once after the sum."""
+    tp = tensor_parallel()
+    if not _split(tp, owner):
+        return linear(p, x, compute_dtype)
+    y = _sum_over_model(tp, torch.matmul(x.to(compute_dtype),
+                                         p["w"].to(compute_dtype)))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
 def init_embedding(gen, vocab: int, d_model: int, dtype=torch.float32,
                    device=None) -> Params:
     return {"table": _normal(gen, (vocab, d_model), 0.02, dtype, device)}
 
 
 def embed(p: Params, tokens: Tensor, compute_dtype=torch.float32) -> Tensor:
-    return p["table"].to(compute_dtype)[tokens.long()]
+    """Rows of the table for ``tokens``.  Vocab-parallel under tensor
+    parallelism: the rank's rows of its vocabulary range, zeros for the
+    other tokens, all-reduced in ``compute_dtype`` (exact: one rank holds
+    each token)."""
+    table = p["table"].to(compute_dtype)
+    tp = tensor_parallel()
+    if not _split(tp, "embed"):
+        return table[tokens.long()]
+    t = tokens.long() - tp.rank * table.shape[0]
+    inside = (t >= 0) & (t < table.shape[0])
+    x = table[torch.where(inside, t, 0)].masked_fill(~inside[..., None], 0)
+    return C.all_reduce_sum(x, tp.group)
+
+
+def gather_vocab(logits: Tensor, owner: str) -> Tensor:
+    """Logits over the rank's vocabulary (``owner``'s columns or rows)
+    all-gathered over the model axis into the whole vocabulary, in the
+    logits' dtype; unchanged when ``owner`` is whole."""
+    tp = tensor_parallel()
+    if not _split(tp, owner):
+        return logits
+    return C.all_gather(logits, tp.group, -1)
 
 
 def unembed(p: Params, x: Tensor, compute_dtype=torch.float32) -> Tensor:
-    """Tied unembedding: logits = x @ table^T (always fp32 out)."""
-    return torch.matmul(
+    """Tied unembedding: logits = x @ table^T (always fp32 out); over the
+    whole vocabulary under tensor parallelism too (:func:`gather_vocab`)."""
+    return gather_vocab(torch.matmul(
         x.to(compute_dtype), p["table"].to(compute_dtype).T
-    ).float()
+    ).float(), "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +285,6 @@ def remat_wrap(cfg, fn):
 def ambient_mesh_axes() -> Dict[str, int]:
     """Axis sizes of the ambient mesh (``launch.mesh.use_mesh``); {} when
     none."""
-    from repro_torch.launch import mesh as M
-
     amb = M.current()
     return {} if amb is None else M.mesh_shape(amb.mesh)
 
@@ -290,6 +378,44 @@ def _repeat_kv(x: Tensor, group: int) -> Tensor:
     return x.repeat_interleave(group, dim=1)
 
 
+def _query_heads(tp, q: Tensor, n_heads: int, every_head: bool = False):
+    """The query heads this rank attends, from its projection ``q`` (B,
+    S, columns): ``(q (B, hq, S, Dh), h0, cols)``, its heads being ``h0 ..
+    h0 + hq - 1`` and ``cols`` the columns of the merged output that its
+    block of ``wo``'s rows takes (``None``: all of them).  Whole heads
+    stay local; heads split mid-head, or every head where ``every_head``
+    (the rank attends a block of the positions), are all-gathered over the
+    model axis."""
+    if tp is None:
+        return _split_heads(q, n_heads), 0, None
+    width = q.shape[-1] * (tp.size if _split(tp, "wq") else 1)
+    if (_split(tp, "wq") and n_heads % tp.size == 0
+            and not every_head):  # wo's rows split too
+        h0, h1 = model_block(n_heads, tp)
+        return _split_heads(q, h1 - h0), h0, None
+    if _split(tp, "wq"):
+        q = C.all_gather(q, tp.group, -1)
+    cols = slice(*model_block(width, tp)) if _split(tp, "wo") else None
+    return _split_heads(q, n_heads), 0, cols
+
+
+def _kv_heads(tp, k: Tensor, v: Tensor, h0: int, hq: int, n_heads: int,
+              n_kv_heads: int) -> Tuple[Tensor, Tensor]:
+    """The kv heads that query heads ``h0 .. h0 + hq - 1`` read, from the
+    heads this rank holds (B, hk, S, Dh): its own block when ``wk`` is
+    split (``n_kv_heads`` divides over the model axis), else a slice of
+    the whole set (views), or, where the query heads do not map onto a
+    run of kv heads in equal groups, one kv head a query head (a copy)."""
+    if tp is None or _split(tp, "wk"):
+        return k, v
+    group = n_heads // n_kv_heads
+    if hq % group == 0 or group % hq == 0:
+        k0, k1 = h0 // group, (h0 + hq - 1) // group + 1
+        return k[:, k0:k1], v[:, k0:k1]
+    idx = torch.arange(h0, h0 + hq, device=k.device) // group
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
 def attention_full(
     p: Params,
     x: Tensor,  # (B, S, D)
@@ -329,10 +455,14 @@ def attention_full(
     """
     b, s, _ = x.shape
     src = x if kv_ctx is None else kv_ctx
-    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)
-    k = _split_heads(linear(p["wk"], src, compute_dtype), n_kv_heads)
-    v = _split_heads(linear(p["wv"], src, compute_dtype), n_kv_heads)
+    tp = tensor_parallel()  # set for the dense family's self-attention only
+    q, h0, cols = _query_heads(tp, linear(p["wq"], x, compute_dtype),
+                               n_heads)
     head_dim = q.shape[-1]
+    k = linear(p["wk"], src, compute_dtype)
+    v = linear(p["wv"], src, compute_dtype)
+    k = _split_heads(k, k.shape[-1] // head_dim)
+    v = _split_heads(v, v.shape[-1] // head_dim)
 
     if kv_ctx is None and rope_base > 0:
         cos, sin = rope_cos_sin(torch.arange(s, device=x.device), head_dim,
@@ -340,7 +470,9 @@ def attention_full(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    group = n_heads // n_kv_heads
+    k_all, v_all = k, v  # the rank's cache: every kv head it holds
+    k, v = _kv_heads(tp, k, v, h0, q.shape[1], n_heads, n_kv_heads)
+    group = q.shape[1] // k.shape[1]
     if backend == "pallas" and kv_ctx is None and window is None:
         # The kernels read these (B, S, H, D)-backed views through their
         # strides and return a (B, S, Hq, D)-backed view, which
@@ -367,10 +499,15 @@ def attention_full(
             logits = logits.masked_fill(~keep, _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(compute_dtype)
         o = torch.matmul(probs, vr)
-    out = linear(p["wo"], _merge_heads(o), compute_dtype)
+    o = _merge_heads(o)
+    out = linear_row(p["wo"], o if cols is None else o[..., cols],
+                     compute_dtype, "wo")
     if cache_dtype is None:
         return out
-    return out, {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
+    if tp is not None and tp.cache_seq:  # the rank's block of positions
+        lo, hi = model_block(s, tp)
+        k_all, v_all = k_all[:, :, lo:hi], v_all[:, :, lo:hi]
+    return out, {"k": k_all.to(cache_dtype), "v": v_all.to(cache_dtype)}
 
 
 def attention_decode(
@@ -396,13 +533,21 @@ def attention_decode(
     would clamp it and write silently at the wrong place.
     """
     pos = int(pos)
-    skv = cache["k"].shape[2]
+    tp = tensor_parallel()
+    # The flash-decoding layout: this rank holds a block of the positions,
+    # and attends every head over it.
+    over_seq = tp is not None and tp.cache_seq
+    s_loc = cache["k"].shape[2]
+    skv = s_loc * (tp.size if over_seq else 1)
     if not 0 <= pos < skv:
         raise IndexError(f"decode position {pos} outside the cache [0, {skv})")
-    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads)  # (B,H,1,Dh)
-    k_new = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads)
-    v_new = _split_heads(linear(p["wv"], x, compute_dtype), n_kv_heads)
+    q, h0, cols = _query_heads(tp, linear(p["wq"], x, compute_dtype),
+                               n_heads, every_head=over_seq)  # (B,H,1,Dh)
     head_dim = q.shape[-1]
+    k_new = linear(p["wk"], x, compute_dtype)
+    v_new = linear(p["wv"], x, compute_dtype)
+    k_new = _split_heads(k_new, k_new.shape[-1] // head_dim)
+    v_new = _split_heads(v_new, v_new.shape[-1] // head_dim)
     if rope_base > 0:
         # A fill on the device: torch.tensor([pos]) would copy from the
         # host and wait for the stream, once per layer and token.
@@ -412,23 +557,44 @@ def attention_decode(
         k_new = apply_rope(k_new, cos, sin)
 
     ck, cv = cache["k"], cache["v"]
-    ck[:, :, pos:pos + 1] = k_new.to(ck.dtype)
-    cv[:, :, pos:pos + 1] = v_new.to(cv.dtype)
-    group = n_heads // n_kv_heads
-    kr = _repeat_kv(ck.to(compute_dtype), group)
-    vr = _repeat_kv(cv.to(compute_dtype), group)
+    lo = tp.rank * s_loc if over_seq else 0  # the rank's first position
+    if lo <= pos < lo + s_loc:  # the rank holding pos writes it
+        ck[:, :, pos - lo:pos - lo + 1] = k_new.to(ck.dtype)
+        cv[:, :, pos - lo:pos - lo + 1] = v_new.to(cv.dtype)
+    kc, vc = _kv_heads(tp, ck, cv, h0, q.shape[1], n_heads, n_kv_heads)
+    group = q.shape[1] // kc.shape[1]
+    kr = _repeat_kv(kc.to(compute_dtype), group)
+    vr = _repeat_kv(vc.to(compute_dtype), group)
     kr, vr, logits = _decode_hints(
         kr, vr, lambda kr: torch.matmul(q, kr.transpose(-1, -2)).float()
         / math.sqrt(head_dim), x.shape[0], n_kv_heads)
-    kpos = torch.arange(skv, device=x.device)
+    kpos = torch.arange(lo, lo + s_loc, device=x.device)
     keep = kpos <= pos
     if window is not None:
         keep = keep & (kpos > pos - window)
     logits = logits.masked_fill(~keep, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(compute_dtype)
-    o = torch.matmul(probs, vr)
-    out = linear(p["wo"], _merge_heads(o), compute_dtype)
+    if over_seq:
+        o = _softmax_over_model(tp, logits, vr).to(compute_dtype)
+    else:
+        probs = torch.softmax(logits, dim=-1).to(compute_dtype)
+        o = torch.matmul(probs, vr)
+    o = _merge_heads(o)
+    out = linear_row(p["wo"], o if cols is None else o[..., cols],
+                     compute_dtype, "wo")
     return out, cache
+
+
+def _softmax_over_model(tp, logits: Tensor, v: Tensor) -> Tensor:
+    """``softmax(logits) @ v`` where each rank holds a block of the
+    positions (``logits`` (..., S_rank), ``v`` (..., S_rank, Dh)): the
+    largest logit by an all-reduce max, then the exponentials' products
+    with ``v`` and their sums by one all-reduce sum, both in float32."""
+    top = C.all_reduce_max(logits.amax(dim=-1, keepdim=True), tp.group)
+    e = torch.exp(logits - top)
+    part = C.all_reduce_sum(torch.cat(
+        [torch.matmul(e, v.float()), e.sum(dim=-1, keepdim=True)], dim=-1),
+        tp.group)
+    return part[..., :-1] / part[..., -1:]
 
 
 def cross_kv(p: Params, ctx: Tensor, n_kv_heads: int, *,
@@ -561,7 +727,7 @@ def mlp(p: Params, x: Tensor, compute_dtype=torch.float32) -> Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(linear(p["up"], x, compute_dtype), approximate="tanh")
-    return linear(p["down"], h, compute_dtype)
+    return linear_row(p["down"], h, compute_dtype, "down")
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,12 @@ Entry points:
 
 Left out: the sliding window that only the hybrid family's shared blocks
 pass.
+
+Under tensor parallelism (``launch.mesh.use_mesh(..., tp=)``, which the
+serving steps of ``serve/efm.py`` set on a mesh) the parameters are each
+rank's blocks and the layers issue the collectives
+(``models/layers.py``); ``prefill`` and ``decode_step`` then build and
+update the rank's block of the serve cache, as the serve specs place it.
 """
 
 from __future__ import annotations
@@ -141,7 +147,8 @@ def init(gen: Optional[torch.Generator], cfg: ModelConfig, device) -> Params:
 def _logits(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
     x = norm_apply(cfg, p["final_norm"], x)
     if "lm_head" in p:
-        return L.linear(p["lm_head"], x, cfg.cdt).float()
+        return L.gather_vocab(L.linear(p["lm_head"], x, cfg.cdt).float(),
+                              "lm_head")
     return L.unembed(p["embed"], x, cfg.cdt)
 
 
@@ -185,12 +192,15 @@ def prefill(
     values are the same (rotated keys, cast to ``cache_dtype``).
     """
     x = L.embed(p["embed"], tokens, cfg.cdt)
-    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], x.device)
+    cache: Dict[str, Tensor] = {}
     for i in range(cfg.n_layers):
         x, cache_l = block_apply(cfg, layer_params(p["layers"], i), x,
                                  cache_dtype=cfg.cachedt)
-        cache["k"][i] = cache_l["k"]
-        cache["v"][i] = cache_l["v"]
+        for name, t in cache_l.items():
+            if i == 0:  # the rank's block of the cache (init_cache's shape
+                # on one device)
+                cache[name] = t.new_zeros((cfg.n_layers, *t.shape))
+            cache[name][i] = t
     return _logits(cfg, p, x[:, -1:]), cache
 
 

@@ -11,13 +11,27 @@ reference (``examples/serve_stream.py``).
 
 ``mesh=None`` returns the step alone, on the model's device.  With a mesh
 (and the reference's ``shape_spec``) each returns ``(step, specs)`` as the
-reference does: one process per device, the parameters gathered whole on
-every rank (plain tensors are taken as the whole value; DTensors are
-gathered), each rank running the family's code on its batch rows under
-the ambient mesh (``launch.mesh.use_mesh``), the decode state placed by
-``serve_specs``.  Prefill returns its logits and cache as DTensors split
-over the batch rows; decode returns the logits replicated (the
-reference's ``P()``) and the state placed by its specs.
+reference does: one process per device, each rank running the family's
+code on its batch rows under the ambient mesh (``launch.mesh.use_mesh``).
+Plain tensors passed in are taken as the whole value, each rank cutting
+its own block (no collective).
+
+The dense family (TinyLlama, OLMo, Qwen2.5, Phi-4-mini; ``shard_strategy
+"tp"``) runs tensor-parallel, as the reference's GSPMD partitions it:
+every parameter stays as ``param_specs`` places it, each rank computes on
+its blocks (``to_local()``), and the layers all-reduce and all-gather
+activations over the ``"model"`` axis (``models/layers.py``); no
+parameter is gathered.  The cache is built and updated as each rank's
+block of ``serve_specs`` (over kv heads, or over the sequence where kv
+heads do not divide), and both steps return it as DTensors so placed.
+
+The other families (MoE/MLA, RWKV6, Zamba2, the VLM, the encoder-decoder)
+and the dense family under ``"dp"``/``"fsdp"`` still gather every
+parameter whole on each rank and run the unsharded code on the rank's
+rows; their prefill returns the cache split over the batch rows.
+
+Prefill returns its logits split over the batch rows; decode returns them
+replicated (the reference's ``P()``) and the state placed by its specs.
 """
 
 from __future__ import annotations
@@ -48,24 +62,51 @@ _BATCH_FROM_END = {"k": 4, "v": 4, "xk": 4, "xv": 4, "wkv": 4, "ssm": 4,
                    "shift_cm": 2, "slot_pos": 2}
 
 
-def _rows(mesh, tree, batch_axes):
+def _rows(mesh, tree, batch_axes, specs=None):
     """``NamedSharding``s splitting each state leaf's batch dim over
-    ``batch_axes``: the rows one rank computes."""
+    ``batch_axes``: the rows one rank computes; with ``specs`` (the serve
+    specs) each leaf keeps their splits over ``"model"`` too."""
+    leaves, treespec = pytree.tree_flatten_with_path(tree)
+    kept = ([()] * len(leaves) if specs is None else
+            [tuple(e if "model" in S.spec_axes(e) else None for e in spec)
+             for spec in S.leaves_like(tree, specs)])
 
-    def one(path, x):
-        spec = [None] * x.ndim
+    def one(path, x, model):
+        spec = list(model) + [None] * (x.ndim - len(model))
         spec[x.ndim - _BATCH_FROM_END[S._key_str(path[-1])]] = (
             batch_axes or None)
         return S.NamedSharding(mesh, S.P(*spec))
 
-    leaves, spec = pytree.tree_flatten_with_path(tree)
-    return pytree.tree_unflatten([one(p, x) for p, x in leaves], spec)
+    return pytree.tree_unflatten(
+        [one(p, x, m) for (p, x), m in zip(leaves, kept)], treespec)
 
 
 def _need_shape(shape_spec) -> None:
     if shape_spec is None:
         raise ValueError("a step on a mesh is built for one shape: pass "
                          "shape_spec (configs.base.ShapeSpec)")
+
+
+def _tensor_parallel(model: Model) -> bool:
+    """Whether the steps run ``model`` tensor-parallel on a mesh (the
+    others gather every parameter whole)."""
+    return model.cfg.family == "dense" and model.cfg.shard_strategy == "tp"
+
+
+def _tp_plan(mesh, pspecs, sspecs):
+    """The rank's ``TensorParallel`` for parameters placed by ``pspecs``
+    and a serve cache placed by ``sspecs``."""
+    return M.tensor_parallel(
+        mesh, S.model_sharded(pspecs),
+        cache_seq="model" in S.spec_axes(sspecs["k"][-2]))  # (L,B,H,S,D)
+
+
+def _placed(x, sharding):
+    """A rank's block as the DTensor ``sharding`` places (no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, sharding.mesh, sharding.placements,
+                              run_check=False)
 
 
 def jit_prefill(model: Model, mesh=None, shape_spec=None):
@@ -83,6 +124,30 @@ def jit_prefill(model: Model, mesh=None, shape_spec=None):
     bspecs = S.batch_specs(model.cfg, shape_spec, mesh)
     on_batch = S.named(mesh, bspecs)
     b_axes = S.spec_axes(bspecs["tokens"][0])
+    on_logits = S.NamedSharding(mesh, S.P(b_axes or None))
+
+    if _tensor_parallel(model):
+        b, s = shape_spec.global_batch, shape_spec.seq_len
+        sshape = model.serve_spec(b, s)
+        sspecs = S.serve_specs(model.cfg, sshape, mesh, b)
+        tp = _tp_plan(mesh, pspecs, sspecs)
+        on_params, on_cache = S.named(mesh, pspecs), S.named(mesh, sspecs)
+        on_block = _rows(mesh, sshape, b_axes, sspecs)
+
+        @torch.no_grad()
+        def tp_prefill(params, batch):
+            if tuple(batch["tokens"].shape) != (b, s):
+                raise ValueError(f"tokens {tuple(batch['tokens'].shape)}: "
+                                 f"this step was built for {(b, s)}")
+            local = S.local_blocks(batch, on_batch)
+            with M.use_mesh(mesh, b_axes, tp):
+                logits, cache = model.prefill(
+                    S.local_blocks(params, on_params), local)
+            return _placed(logits, on_logits), pytree.tree_map(
+                lambda x, blk, on: S.place(_placed(x, blk), on), cache,
+                on_block, on_cache)
+
+        return tp_prefill, {"params": pspecs, "batch": bspecs}
 
     @torch.no_grad()
     def sharded_prefill(params, batch):
@@ -90,19 +155,11 @@ def jit_prefill(model: Model, mesh=None, shape_spec=None):
                  for k, v in batch.items()}
         with M.use_mesh(mesh, b_axes):
             logits, cache = model.prefill(_whole(params), local)
-        out = None if logits is None else _from_rows(
-            logits, S.NamedSharding(mesh, S.P(b_axes or None)))
-        cache = pytree.tree_map(_from_rows, cache, _rows(mesh, cache, b_axes))
+        out = None if logits is None else _placed(logits, on_logits)
+        cache = pytree.tree_map(_placed, cache, _rows(mesh, cache, b_axes))
         return out, cache
 
     return sharded_prefill, {"params": pspecs, "batch": bspecs}
-
-
-def _from_rows(x, sharding):
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(x, sharding.mesh, sharding.placements,
-                              run_check=False)
 
 
 def jit_decode_step(model: Model, mesh=None, shape_spec=None):
@@ -128,7 +185,32 @@ def jit_decode_step(model: Model, mesh=None, shape_spec=None):
     on_state = S.named(mesh, sspecs)
     on_rows = _rows(mesh, sshape, dp)
     on_token = S.NamedSharding(mesh, tok_spec)
+    on_logits = S.NamedSharding(mesh, S.P(dp or None))
     replicated = [Replicate()] * len(M.mesh_axes(mesh))
+    specs = {"params": pspecs, "state": sspecs, "token": tok_spec}
+
+    if _tensor_parallel(model):
+        tp = _tp_plan(mesh, pspecs, sspecs)
+        on_params = S.named(mesh, pspecs)
+        # The rank computes on its rows and its "model" block; the state
+        # comes and goes placed by the serve specs, which differ from that
+        # only where a layer count equals the batch (_BATCH_FROM_END).
+        on_block = _rows(mesh, sshape, dp, sspecs)
+
+        @torch.no_grad()
+        def tp_decode(params, state, token, pos):
+            local = pytree.tree_map(lambda x, blk: S.place(x, blk).to_local(),
+                                    state, on_block)  # written in place
+            tok = S.place(token, on_token).to_local()
+            with M.use_mesh(mesh, dp or (), tp):
+                logits, local = model.decode_step(
+                    S.local_blocks(params, on_params), local, tok, pos)
+            return (_placed(logits, on_logits).redistribute(mesh, replicated),
+                    pytree.tree_map(
+                        lambda x, blk, on: S.place(_placed(x, blk), on),
+                        local, on_block, on_state))
+
+        return tp_decode, specs
 
     @torch.no_grad()
     def sharded_decode(params, state, token, pos):
@@ -137,15 +219,13 @@ def jit_decode_step(model: Model, mesh=None, shape_spec=None):
         tok = S.place(token, on_token).to_local()
         with M.use_mesh(mesh, dp or ()):
             logits, rows = model.decode_step(_whole(params), rows, tok, pos)
-        logits = _from_rows(logits, S.NamedSharding(
-            mesh, S.P(dp or None))).redistribute(mesh, replicated)
+        logits = _placed(logits, on_logits).redistribute(mesh, replicated)
         state = pytree.tree_map(
-            lambda x, r, on: S.place(_from_rows(x, r), on), rows, on_rows,
+            lambda x, r, on: S.place(_placed(x, r), on), rows, on_rows,
             on_state)
         return logits, state
 
-    return sharded_decode, {"params": pspecs, "state": sspecs,
-                            "token": tok_spec}
+    return sharded_decode, specs
 
 
 def pad_for_decode(model: Model, state, n: int):

@@ -481,3 +481,96 @@ def _sharded_checkpoint(rank, payload, mesh, sharded, local):
     out["restored_counters"] = (restored.server_counters(),
                                 sharded.server_counters())
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_tp_serve.py: tensor-parallel prefill and decode of the dense
+# family
+# ---------------------------------------------------------------------------
+
+
+def _check_placed(tree, specs, mesh):
+    """Whether each DTensor leaf is placed by its spec, its local block of
+    the spec's shape."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import sharding as S
+
+    for x, spec in zip(pytree.tree_leaves(tree), S.leaves_like(tree, specs)):
+        if (tuple(x.placements) != S.to_placements(spec, mesh)
+                or tuple(x.to_local().shape)
+                != S.local_shape(tuple(x.shape), spec, mesh)):
+            return False
+    return True
+
+
+def _tp_case(rank, case):
+    """The dense step on ``case["mesh"]`` from the reference's parameters,
+    placed by ``param_specs``: each logits' largest difference from
+    ``mesh=None``'s on the same rank, the logits themselves (rank 0), the
+    greedy tokens (``mesh=None``'s argmax), each step's collectives
+    (``Recorder``) and whether the caches come back as the serve specs
+    place them."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.hloparse import Recorder
+    from repro_torch.models import build_model
+    from repro_torch.serve import efm
+
+    mesh = _mesh(case["mesh"], ("data", "model"))
+    cfg = get_smoke_config(case["arch"]).replace(cache_dtype="float32")
+    cfg = cfg.replace(n_layers=case.get("n_layers", cfg.n_layers))
+    model = build_model(cfg, device="cpu")
+    whole = convert.dense_from_jax(case["params"], cfg, device="cpu")
+    tokens = _t(case["tokens"])
+    b, s = tokens.shape
+    n = case["new"]
+    prefill, pspecs = efm.jit_prefill(model, mesh,
+                                      ShapeSpec("p", "prefill", s, b))
+    decode, dspecs = efm.jit_decode_step(model, mesh,
+                                         ShapeSpec("d", "decode", s + n, b))
+    params = S.place_tree(whole, S.named(mesh, pspecs["params"]))
+    plain_prefill = efm.jit_prefill(model)
+    plain_decode = efm.jit_decode_step(model)
+
+    out = {"records": [], "logits": [], "errs": [], "tokens": []}
+    with S.full_tensor_refused(), Recorder() as rec:
+        logits, cache = prefill(params, {"tokens": tokens})
+    ref_logits, ref_cache = plain_prefill(whole, {"tokens": tokens})
+    out["records"].append([tuple(r) for r in rec.records])
+    prefill_specs = S.serve_specs(cfg, model.serve_spec(b, s), mesh, b)
+    out["cache_placed"] = _check_placed(cache, prefill_specs, mesh)
+    out["cache_err"] = max(float(abs(_np(cache[k]) - ref_cache[k].numpy())
+                                 .max()) for k in ("k", "v"))
+    lg = _np(logits)
+    out["logits"].append(lg)
+    out["errs"].append(float(abs(lg - ref_logits.numpy()).max()))
+
+    state = efm.pad_for_decode(model, pytree.tree_map(_full, cache), n)
+    ref_state = efm.pad_for_decode(model, ref_cache, n)
+    tok = tokens[:, -1:]
+    for i in range(n):
+        with S.full_tensor_refused(), Recorder() as rec:
+            lg, state = decode(params, state, tok, s + i)
+        rlg, ref_state = plain_decode(whole, ref_state, tok, s + i)
+        out["records"].append([tuple(r) for r in rec.records])
+        lg = _np(lg)
+        out["logits"].append(lg)
+        out["errs"].append(float(abs(lg - rlg.numpy()).max()))
+        tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
+        out["tokens"].append(tok.numpy())
+    out["state_placed"] = _check_placed(state, dspecs["state"], mesh)
+    out["state_err"] = max(float(abs(_np(state[k]) - ref_state[k].numpy())
+                                 .max()) for k in ("k", "v"))
+    if rank:
+        out.pop("logits")
+    return out
+
+
+def tp_serve_suite(rank, world, payload):
+    return {name: _tp_case(rank, case) for name, case in payload.items()}

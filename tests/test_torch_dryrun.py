@@ -14,9 +14,10 @@ reference's ``repro.launch.dryrun``.
     ``overrides`` of the full one) on fake process groups of 256 and 512
     ranks: ``run_cell``'s train step is ``ok``, with its collectives
     recorded; the prefill's ``flops`` per device equal ``FlopCounterMode``
-    over the unsharded meta prefill of one rank's rows, and its
-    ``argument_size_in_bytes`` equals ``sharded_bytes`` of the parameters
-    and the batch.  RWKV6 and Zamba2 loop over time in Python (training
+    over the unsharded meta prefill of one rank's rows (the dense family,
+    which serves tensor-parallel, a count worked out from its specs:
+    :func:`dense_tp_prefill_flops`), and its ``argument_size_in_bytes``
+    equals ``sharded_bytes`` of the parameters and the batch.  RWKV6 and Zamba2 loop over time in Python (training
     takes the per-token ``"ref"`` scan, prefill the chunked one), which
     meta tensors make no cheaper: their ``run_cell`` step is
     ``decode_32k``, their train step is traced (``lower``/``trace``) at
@@ -36,9 +37,13 @@ import sys
 import textwrap
 
 import pytest
+from torch.utils import _pytree as pytree
 
-from repro_torch.configs import ARCH_IDS, get_shapes
+from repro_torch.configs import ARCH_IDS, get_shapes, get_smoke_config
 from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as S
+from repro_torch.models import build_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -224,11 +229,54 @@ def test_each_familys_meta_step_runs_on_256_and_512_ranks(meta_cells, arch):
             assert meta_cells[f"{arch}|train64|{mp}"] > 0
 
 
+def dense_tp_prefill_flops(arch, shape_name="prefill_32k",
+                           mesh_shape=(16, 16)):
+    """The flops one rank of a (data, model) mesh counts in the dense
+    family's tensor-parallel prefill of ``arch``'s smoke configuration:
+    2 x tokens x each projection's local shape from its spec
+    (``S.local_shape``), the masked reference attention's two products
+    (Q K^T and P V, 2 flops a multiply-add each over every key position)
+    over the heads the rank attends (its own block of whole heads, or all
+    of them where the heads split mid-head), and the last position's
+    logits over the rank's vocabulary."""
+    cfg = get_smoke_config(arch)
+    shape = next(s for s in get_shapes(arch) if s.name == shape_name)
+    mesh = M.AbstractMesh(mesh_shape, ("data", "model"))
+    pshape = build_model(cfg, device="meta").param_spec()
+    specs = S.param_specs(cfg, pshape, mesh)
+    rows = shape.global_batch // mesh.shape["data"]
+    tokens = rows * shape.seq_len
+    flops = 0
+    layers = pytree.tree_flatten_with_path(pshape["layers"])[0]
+    for (path, x), spec in zip(layers, S.leaves_like(pshape["layers"],
+                                                     specs["layers"])):
+        if path[-1].key == "w":
+            n_layers, d_in, d_out = S.local_shape(tuple(x.shape), spec, mesh)
+            flops += 2 * tokens * d_in * d_out * n_layers
+    model = mesh.shape["model"]
+    split = S.model_sharded(specs)
+    heads = (cfg.n_heads // model if "wq" in split
+             and cfg.n_heads % model == 0 else cfg.n_heads)
+    flops += (cfg.n_layers * 2 * 2 * rows * heads * shape.seq_len ** 2
+              * cfg.head_dim_)
+    head, spec = ((pshape["lm_head"]["w"], specs["lm_head"]["w"])
+                  if "lm_head" in pshape else
+                  (pshape["embed"]["table"], specs["embed"]["table"]))
+    d_in, d_out = S.local_shape(tuple(head.shape), spec, mesh)
+    return flops + 2 * rows * d_in * d_out
+
+
 @pytest.mark.parametrize("arch", _FAMILIES)
 def test_prefill_flops_and_argument_bytes_per_device(meta_cells, arch):
     rec = meta_cells[f"{arch}|prefill"]
     assert rec["ok"], rec["error"]
-    assert rec["flops"] == rec["plain_flops"] > 0
+    if get_smoke_config(arch).family == "dense":
+        # Served tensor-parallel: the rank's share of the products, not the
+        # unsharded prefill of its rows with whole weights.
+        assert rec["flops"] == dense_tp_prefill_flops(arch) > 0
+        assert rec["flops"] < rec["plain_flops"]
+    else:
+        assert rec["flops"] == rec["plain_flops"] > 0
     assert rec["args"] == rec["spec_args"]
 
 
