@@ -289,9 +289,17 @@ and prints no result line):
    flash-decoding layout (a one-rank ``TensorParallel`` with
    ``cache_seq=True``: the combine of partial softmaxes that a model axis
    of 2 and more runs where kv heads do not divide), within
-   ``BF16_LOGIT_TOL`` of ``mesh=None``.  And TinyLlama-1.1B under
-   ``shard_strategy="fsdp"``, the gathered path the five other families
-   take on a mesh: bitwise ``mesh=None``, 22 flash launches a prefill.
+   ``BF16_LOGIT_TOL`` of ``mesh=None``.  RWKV6-3B and Zamba2-2.7B at
+   published width and depth, bf16, the scans on ``"pallas"`` (the
+   hybrid's shared attention on the flash kernel), on the tensor-parallel
+   path too: 4 x 1024 and 8 greedy tokens, logits and state bitwise
+   ``mesh=None``'s, 32 ``rwkv6_scan`` / 54 ``mamba2_ssd`` and 9 flash
+   launches a prefill and none of any other kernel (0 in decode),
+   ``full_tensor`` raising inside every step, no parameter-sized
+   collective; readings: the prefill's time and peak beside
+   ``mesh=None``'s.  And TinyLlama-1.1B under ``shard_strategy="fsdp"``,
+   the gathered path the other families take on a mesh: bitwise
+   ``mesh=None``, 22 flash launches a prefill.
    (d) ``moe_ffn`` with
    ``moe_impl="ep"`` on the one-rank mesh returns to the sort path
    (``moe_ffn_ep`` gives ``None`` at ``n_ep == 1``): bitwise
@@ -300,7 +308,11 @@ and prints no result line):
    architecture at model 2, 4, 8 and 16 (q (4, heads on the rank, 1024,
    D), the kv heads as the last rank reads them, a slice of those it
    holds), bf16, against its plain version to phase 5's tolerance, and
-   timed beside its bound.  20a also
+   timed beside its bound; the two scan kernels at the local shapes of
+   model 1, 2, 4, 8 and 16 (RWKV6-3B's K-slice of 64/model channels, the
+   last rank's, bf16; Zamba2-2.7B's 80/model heads, float32), against
+   their plain versions to phase 13's tolerance, timed beside their
+   bounds.  20a also
    reads, for phase 21b, the bytes placing 19a's parameters and moments
    asks the allocator for and one step's peak from them.
 21. The dry-run, in a process of its own (``chip_smoke.py --dryrun``,
@@ -318,11 +330,14 @@ and prints no result line):
 It then prints one JSON line ``{"kernels": [...]}`` (flash attention has
 three rows: ``flash_attention_pallas``, the bf16 wgmma instance of the
 main path, with the launches of phase 7's prefill, phase 18's bf16 VLM
-prefill and SeamlessM4T forward and phase 20c's five sharded prefills; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
+prefill and SeamlessM4T forward and phase 20c's five dense sharded
+prefills; ``flash_attention_pallas/tf32``, the 3xTF32 instance in
 float32, with the launches of phase 7's float32 prefill and of phase
 18's float32 ``"pallas"`` VLM prefill and SeamlessM4T forward; and
 ``flash_attention_pallas/tf32_d160``, the same kernel in bf16 at head dim
-160, with the launches of phase 15's Zamba2-2.7B prefill; the int8 kernel
+160, with the launches of phase 15's Zamba2-2.7B prefill and of phase
+20c's tensor-parallel one; the scan rows add phase 20c's tensor-parallel
+prefills' launches to phase 15's; the int8 kernel
 two: ``int8_matmul_pallas/qconv``, the fused launch of the int8 main path,
 and ``int8_matmul_pallas``, the op's product kernel, held and timed in
 phases 9-10 at the main path's product shapes, whose work the fused launch
@@ -515,8 +530,9 @@ TRAIN_TOL = 1e-4
 DIST_STEPS = 4
 DIST_SLOTS, DIST_CHUNKS, DIST_CHURN_AT = 8, 4, 2
 DIST_EP_TOKENS = (2, 512)
-# Phase 20c-e: the dense family served tensor-parallel; 20e holds the
-# flash kernel at the local shapes of these model-axis widths.
+# Phase 20c-e: the dense family, RWKV6-3B and Zamba2-2.7B served
+# tensor-parallel; 20e holds the flash kernel at the local shapes of these
+# model-axis widths, and the two scan kernels at those of model 1 too.
 DENSE_ARCHS = ("tinyllama-1.1b", "olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b")
 TP_MODEL_AXES = (2, 4, 8, 16)
 # Phase 21: the dry-run's full-width cells (arch, shape, multi-pod mesh).
@@ -4325,6 +4341,17 @@ def dist_serve_checkpoint(torch, device, models, mesh, local, sharded,
           f"bitwise the uninterrupted sharded and mesh=None runs")
 
 
+def peak_above(torch, fn):
+    """``fn()`` and the most memory it held above what was allocated
+    before it (the other run's results stay alive)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
 def dist_efm_arch(torch, device, mesh, card, arch):
     """Phase 20c for one dense architecture; returns the sharded
     prefill's flash launches."""
@@ -4356,24 +4383,14 @@ def dist_efm_arch(torch, device, mesh, card, arch):
     plain_prefill, plain_decode = efm.jit_prefill(model), \
         efm.jit_decode_step(model)
     flash = kernel_wrappers()["flash_attention_pallas"]
-
-    def peak(fn):
-        """``fn()`` and the most memory it held above what was allocated
-        before it (the other run's results stay alive)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, torch.cuda.max_memory_allocated() - before
-
     plain_prefill(whole_params, batch)  # warm-up
-    (ref_logits, ref_cache), ref_peak = peak(
-        lambda: plain_prefill(whole_params, batch))
+    (ref_logits, ref_cache), ref_peak = peak_above(
+        torch, lambda: plain_prefill(whole_params, batch))
     flash.launches = 0
     t0 = time.perf_counter()
     with S.full_tensor_refused(), Recorder() as rec:
-        (logits, cache), tp_peak = peak(lambda: prefill(params, batch))
+        (logits, cache), tp_peak = peak_above(
+            torch, lambda: prefill(params, batch))
     t_prefill = time.perf_counter() - t0
     n_flash = flash.launches
     records = list(rec.records)
@@ -4477,17 +4494,125 @@ def dist_efm_gathered(torch, device, mesh, card):
     return n_flash
 
 
+def dist_efm_recurrent(torch, device, mesh, card, arch):
+    """Phase 20c for RWKV6-3B or Zamba2-2.7B at published width and depth
+    in bf16, the scans on ``"pallas"`` (and the hybrid's shared attention
+    on the flash kernel): the tensor-parallel steps on the one-rank mesh,
+    bitwise ``mesh=None``'s; returns the tensor-parallel prefill's launches
+    of each kernel wrapper, counted from 0 just before it."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.hloparse import Recorder
+    from repro_torch.models import build_model
+    from repro_torch.serve import efm
+
+    kernel = SSM_ARCHS[arch][0]
+    cfg = get_config(arch).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+        attn_backend="pallas" if arch == HYBRID else "ref")
+    model = build_model(cfg, device=device, scan_backend="pallas")
+    whole_params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    tokens = zoo_tokens(torch, device, cfg.vocab)
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    prefill, specs = efm.jit_prefill(model, mesh,
+                                     ShapeSpec("p", "prefill", s, b))
+    decode, _ = efm.jit_decode_step(model, mesh,
+                                    ShapeSpec("d", "decode", s + ZOO_NEW, b))
+    params = S.place_tree(whole_params, S.named(mesh, specs["params"]))
+    param_bytes = {x.numel() * x.element_size()
+                   for x in pytree.tree_leaves(whole_params)}
+    plain_prefill, plain_decode = efm.jit_prefill(model), \
+        efm.jit_decode_step(model)
+    wrappers = kernel_wrappers()
+
+    plain_prefill(whole_params, batch)  # warm-up
+    (ref_logits, ref_cache), ref_peak = peak_above(
+        torch, lambda: plain_prefill(whole_params, batch))
+    for w in wrappers.values():
+        w.launches = 0
+    with S.full_tensor_refused(), Recorder() as rec:
+        (logits, cache), tp_peak = peak_above(
+            torch, lambda: prefill(params, batch))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    records = list(rec.records)
+    n_inv = (cfg.n_layers // cfg.shared_attn_period if arch == HYBRID
+             else 0)
+    want = {k: 0 for k in wrappers}
+    want[kernel], want["flash_attention_pallas"] = cfg.n_layers, n_inv
+    _need(launches == want, f"20c {arch}: launches {launches} in the "
+          f"tensor-parallel prefill, not {want}")
+    _need(torch.equal(logits.full_tensor(), ref_logits)
+          and trees_equal(torch, whole(torch, cache), ref_cache),
+          f"20c {arch}: the tensor-parallel prefill differs from mesh=None")
+    state = efm.pad_for_decode(model, whole(torch, cache), ZOO_NEW)
+    ref_state = efm.pad_for_decode(model, ref_cache, ZOO_NEW)
+    del cache, ref_cache
+    tok = torch.argmax(ref_logits[:, -1:], dim=-1).to(torch.int32)
+    for i in range(ZOO_NEW):
+        with S.full_tensor_refused(), Recorder() as rec:
+            lg, state = decode(params, state, tok, s + i)
+        records += rec.records
+        rlg, ref_state = plain_decode(whole_params, ref_state, tok, s + i)
+        _need(torch.equal(lg.full_tensor(), rlg),
+              f"20c {arch}: decode step {i} differs from mesh=None")
+        tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
+    _need(trees_equal(torch, whole(torch, state), ref_state),
+          f"20c {arch}: the decoded state differs from mesh=None's")
+    _need({k: w.launches for k, w in wrappers.items()} == launches,
+          f"20c {arch}: kernel launches in decode")
+    carried = [r for r in records if r.nbytes in param_bytes]
+    _need(not carried, f"20c {arch}: parameter-sized collectives {carried}")
+    del state, ref_state
+    # Readings, after the held runs (their launches are not the path's
+    # count): the two prefills in alternating pairs, outside the recorder.
+    times = {"mesh=None": [], "tensor-parallel": []}
+    for _ in range(3):
+        for key, fn in (("mesh=None",
+                         lambda: plain_prefill(whole_params, batch)),
+                        ("tensor-parallel", lambda: prefill(params, batch))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    print(f"[20c] {arch} bf16 scan_backend='pallas'"
+          f"{', attn_backend=pallas' if n_inv else ''}, tensor-parallel on "
+          f"the one-rank mesh: prefill {b}x{s} ({cfg.n_layers} {kernel}"
+          f"{f', {n_inv} flash' if n_inv else ''} launches; 0 in decode) and "
+          f"{ZOO_NEW} greedy tokens, logits and state bitwise mesh=None's; "
+          f"{len(records)} collectives recorded, none parameter-sized; the "
+          f"prefill's peak above its inputs {tp_peak / 2**30:.3f} GiB "
+          f"beside mesh=None's {ref_peak / 2**30:.3f} GiB; prefill ms in "
+          f"alternating pairs (host clock around synchronised runs): "
+          + "; ".join(f"{k} " + " / ".join(f"{t:.2f}" for t in v)
+                      for k, v in times.items()) + f" ({card})")
+    return {kernel: launches[kernel],
+            "flash_attention_pallas/tf32_d160": n_inv}
+
+
 def phase_dist_efm(torch, device, mesh, card):
     """(c) ``jit_prefill``/``jit_decode_step`` of the four dense
-    architectures on the mesh against ``mesh=None``, bf16 on the flash
-    kernel, and of TinyLlama-1.1B on the gathered path; returns the
-    sharded prefills' flash launches."""
+    architectures, RWKV6-3B and Zamba2-2.7B on the mesh against
+    ``mesh=None``, bf16 on the kernels, and of TinyLlama-1.1B on the
+    gathered path; returns the sharded prefills' launches of each kernel
+    row."""
     n = dist_efm_gathered(torch, device, mesh, card)
     torch.cuda.empty_cache()
     for arch in DENSE_ARCHS:
         n += dist_efm_arch(torch, device, mesh, card, arch)
         torch.cuda.empty_cache()
-    return n
+    launches = {"flash_attention_pallas": n, "rwkv6_scan_pallas": 0,
+                "mamba2_ssd_pallas": 0, "flash_attention_pallas/tf32_d160": 0}
+    for arch in SSM_ARCHS:
+        for k, m in dist_efm_recurrent(torch, device, mesh, card,
+                                       arch).items():
+            launches[k] += m
+        torch.cuda.empty_cache()
+    return launches
 
 
 def tp_flash_shapes(cfg, model_axis):
@@ -4559,6 +4684,51 @@ def phase_dist_flash_shapes(torch, device, card):
     return out
 
 
+def phase_dist_scan_shapes(torch, device, card):
+    """(e) The two scan kernels at the local shapes tensor parallelism
+    gives RWKV6-3B (r, k, w_log (4, 40, 1024, 64/model) bf16, the last
+    rank's K-slice of the model's (B, T, H, 64) tensors, v whole) and
+    Zamba2-2.7B (x (4, 80/model, 1024, 64) float32, the rank's heads) at
+    model 1, 2, 4, 8 and 16, in the models' layout, against their plain
+    versions to phase 13's tolerance; times beside the bound."""
+    from repro_torch.kernels.mamba2_ssd.chunked import mamba2_ssd_chunked
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd_pallas
+    from repro_torch.kernels.rwkv6_scan.chunked import rwkv6_scan_chunked
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_pallas
+
+    out = []
+    for m in (1, *TP_MODEL_AXES):
+        b, h, t, dk, dv, chunk = RWKV_FULL
+        r, k, v, w, u = rwkv_inputs(torch, device, b, h, t, dk, dv,
+                                    torch.bfloat16, SEED + m, native=True)
+        ks = slice(dk - dk // m, dk)  # the last rank's channels of K
+        args = (r[..., ks], k[..., ks], v, w[..., ks], u[:, ks])
+        rows = [("rwkv6_scan_pallas", rwkv6_scan_pallas, rwkv6_scan_chunked,
+                 args, chunk, rwkv_bound(b, h, t, dk // m, dv, chunk, 2),
+                 f"r {(b, h, t, dk // m)} bf16 (K {ks.start}:{ks.stop})")]
+        b, h, t, p, n, chunk = SSD_FULL
+        args = ssd_inputs(torch, device, b, h // m, t, p, n, torch.float32,
+                          SEED + m, native=True)
+        rows.append(("mamba2_ssd_pallas", mamba2_ssd_pallas,
+                     mamba2_ssd_chunked, args, chunk,
+                     ssd_bound(b, h // m, t, p, n, chunk, 4),
+                     f"x {(b, h // m, t, p)} float32"))
+        for name, kernel, plain, args, chunk, bound, what in rows:
+            got, state = kernel(*args, chunk=chunk)
+            want, want_state = plain(*args, chunk=chunk)
+            err = max(float((got - want).abs().max()),
+                      float((state - want_state).abs().max()))
+            _need(bool(torch.isfinite(got).all()) and err <= SCAN_TOL,
+                  f"20e {name} model {m}: kernel vs plain {err}")
+            ms = device_ms(torch, lambda: kernel(*args, chunk=chunk),
+                           per_graph=5, replays=10)
+            out.append((name, m, ms))
+            print(f"[20e] {name} model {m}: {what}, chunk {chunk}, max|err| "
+                  f"{err:.3g} (tol {SCAN_TOL}), {ms:.6f} ms, bound "
+                  f"{bound[0]:.6f} ms ({bound[1]}) ({card})")
+    return out
+
+
 def phase_dist_ep(torch, device, mesh):
     """(d) ``moe_impl="ep"`` on the one-rank mesh takes the sort path."""
     from repro_torch.configs import get_config
@@ -4604,9 +4774,10 @@ def dist_main() -> int:
         torch.cuda.empty_cache()
         phase_dist_serve(torch, device, card)
         torch.cuda.empty_cache()
-        out["flash_launches"] = phase_dist_efm(torch, device, mesh, card)
+        out["launches"] = phase_dist_efm(torch, device, mesh, card)
         torch.cuda.empty_cache()
         phase_dist_flash_shapes(torch, device, card)
+        phase_dist_scan_shapes(torch, device, card)
         phase_dist_ep(torch, device, mesh)
     finally:
         dist.destroy_process_group()
@@ -5615,7 +5786,8 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()  # the card's memory to phase 19's process
     dist = phase_dist_process(phase_train_process())
-    launches["flash_attention_pallas"] += dist["flash_launches"]
+    for name, n in dist["launches"].items():
+        launches[name] += n
     phase_dryrun_process(dist, card)
     serve = phase_serve_process()
     errs.update(serve["errs"])

@@ -34,10 +34,11 @@ have no counterpart (no program is compiled).  ``peak_bytes`` and
 ``fits`` hold the peak against the H100's 80 GB (``mesh.HBM_BYTES``).
 
 The port runs each rank's share of the work on plain tensors, so the
-figures are the port's plan, not XLA's: the dense family's serving cells
-run tensor-parallel (each rank on its parameter blocks, activations
-all-reduced and all-gathered over ``"model"``: ``serve/efm.py``), every
-other step gathers every weight whole (``launch/train.py``).  A process that already holds a process group
+figures are the port's plan, not XLA's: the serving cells of the dense
+family, RWKV6 and the Zamba2 hybrid run tensor-parallel (each rank on its
+parameter blocks, activations all-reduced and all-gathered over
+``"model"``: ``serve/efm.py``), every other step gathers every weight
+whole (``launch/train.py``).  A process that already holds a process group
 is refused: it has room for one default group, and the dry-run's must be
 the fake one.
 

@@ -231,32 +231,40 @@ def axes_size(mesh, names) -> int:
 
 
 class TensorParallel(NamedTuple):
-    """Tensor parallelism over the mesh's ``"model"`` axis, as the dense
-    family's serving steps run it (``serve/efm.py``): each rank holds the
-    blocks its parameters' specs give it and computes on them, and the
-    layers (``models/layers.py``) issue the collectives over ``group``."""
+    """Tensor parallelism over the mesh's ``"model"`` axis, as the serving
+    steps of the dense, RWKV6 and hybrid families run it
+    (``serve/efm.py``): each rank holds the blocks its parameters' specs
+    give it and computes on them, and the layers (``models/layers.py``,
+    ``models/rwkv6.py``, ``models/mamba2.py``) issue the collectives over
+    ``group``."""
 
     group: Any  # the process group over "model"
     size: int  # ranks on "model"
     rank: int  # this rank's index on "model"
-    # The parameter owners ("wq", "down", "embed", ...) whose block on
-    # this rank is a shard over "model"; the others are whole.
+    # The parameter owners whose block on this rank is a shard over
+    # "model" (``launch.sharding.model_sharded``: "wq", "tm/wk", "embed",
+    # ...); the others are whole.
     sharded: FrozenSet[str]
     # Whether the serve cache is split over its sequence on "model" (the
     # flash-decoding layout) rather than over its kv heads or not at all.
     cache_seq: bool
+    # The serve-state leaves ("wkv", "ssm", "conv", "shift_tm", ...) whose
+    # block on this rank is split over "model" beside its rows; the others
+    # are whole on every rank of the axis.
+    state: FrozenSet[str] = frozenset()
 
 
-def tensor_parallel(mesh: DeviceMesh, sharded, cache_seq: bool = False
-                    ) -> TensorParallel:
+def tensor_parallel(mesh: DeviceMesh, sharded, cache_seq: bool = False,
+                    state=()) -> TensorParallel:
     """The :class:`TensorParallel` of this rank on ``mesh``'s ``"model"``
     axis (a mesh without one is a model axis of 1)."""
     if "model" not in mesh_axes(mesh):
-        return TensorParallel(None, 1, 0, frozenset(sharded), cache_seq)
+        return TensorParallel(None, 1, 0, frozenset(sharded), cache_seq,
+                              frozenset(state))
     return TensorParallel(axis_group(mesh, ("model",)),
                           mesh_shape(mesh)["model"],
                           mesh.get_local_rank("model"), frozenset(sharded),
-                          cache_seq)
+                          cache_seq, frozenset(state))
 
 
 class Ambient(NamedTuple):
@@ -266,7 +274,7 @@ class Ambient(NamedTuple):
     # whole batch.
     batch_axes: Tuple[str, ...]
     # Set when the model code runs on each rank's parameter blocks (the
-    # dense family's serving steps); None when every weight is whole.
+    # tensor-parallel serving steps); None when every weight is whole.
     tp: Optional[TensorParallel] = None
 
 

@@ -422,24 +422,47 @@ def local_blocks(tree: Any, shardings: Any) -> Any:
         spec)
 
 
+def _qualified_owner(path_str: str) -> str:
+    """A parameter's owner with the modules that hold it, below the layer
+    stacks: ``"layers/tm/wk/w"`` -> ``"tm/wk"``, ``"layers/in_proj/b"``
+    -> ``"in_proj"``, the embedding's ``table`` -> ``"embed"``."""
+    name, _ = _name_owner(path_str)
+    if name == "table":
+        return "embed"
+    parts = path_str.split("/")
+    if name in ("w", "b"):
+        parts = parts[:-1]
+    return "/".join(p for p in parts
+                    if p not in STACK1 and p != "self_layers")
+
+
 def model_sharded(spec_tree: Any) -> frozenset:
-    """The owners (``"wq"``, ``"down"``, ``"embed"``, ...) of the leaves
-    whose spec splits a dim over ``"model"``, as :func:`param_spec` names
-    them (``.../<owner>/w|b``, the embedding's ``table`` as ``"embed"``)."""
-    out = set()
+    """The owners of the leaves whose spec splits a dim over ``"model"``:
+    each by its path below the layer stacks (``"attn/wq"``, ``"tm/wk"``,
+    ``"in_proj"``, the embedding's ``table`` as ``"embed"``), and by its
+    bare name (``"wq"``, ``"down"``) where every owner of that name is
+    split.  A name that a family gives a split owner and a whole one
+    (RWKV6's ``tm/wk`` and ``cm/wk`` where ``d_ff`` does not divide the
+    model axis and ``d_model`` does) stands only qualified."""
+    owners: dict = {}  # qualified owner -> whether a leaf of it is split
     leaves = pytree.tree_flatten_with_path(spec_tree, is_leaf=is_spec)[0]
     for path, spec in leaves:
-        if any("model" in spec_axes(e) for e in spec):
-            name, owner = _name_owner(_path_str(path))
-            out.add("embed" if name == "table" else owner)
-    return frozenset(out)
+        owner = _qualified_owner(_path_str(path))
+        owners[owner] = owners.get(owner, False) or any(
+            "model" in spec_axes(e) for e in spec)
+
+    def bare(split):
+        return {o.rsplit("/", 1)[-1] for o, s in owners.items() if s == split}
+
+    split = {o for o, s in owners.items() if s}
+    return frozenset(split | (bare(True) - bare(False)))
 
 
 @contextlib.contextmanager
 def full_tensor_refused() -> Iterator[None]:
     """``DTensor.full_tensor`` raising for the ``with`` block: a step run
-    inside it gathers no DTensor whole (the dense family's
-    tensor-parallel serving steps hold to that)."""
+    inside it gathers no DTensor whole (the tensor-parallel serving steps
+    of the dense, RWKV6 and hybrid families hold to that)."""
     from torch.distributed.tensor import DTensor
 
     def refuse(self, *args, **kwargs):

@@ -22,11 +22,13 @@ the decode-layout hints (in :func:`attention_decode` and
 :func:`cross_attention_decode`, which the VLM and the encoder-decoder
 share) leave them as they are.
 
-Tensor parallelism (the dense family's serving steps): when the ambient
-mesh carries a ``launch.mesh.TensorParallel`` (:func:`tensor_parallel`),
-each parameter is this rank's block of it, as the sharding rules place
-it over ``"model"``, and the layers compute on the blocks (Megatron's
-plan, which GSPMD derives from the same specs in the reference):
+Tensor parallelism (the serving steps of the dense family, and of RWKV6
+and the hybrid through these layers and their own, ``models/rwkv6.py``
+and ``models/mamba2.py``): when the ambient mesh carries a
+``launch.mesh.TensorParallel`` (:func:`tensor_parallel`), each parameter
+is this rank's block of it, as the sharding rules place it over
+``"model"``, and the layers compute on the blocks (Megatron's plan, which
+GSPMD derives from the same specs in the reference):
 
 * column-parallel projections (``wq/wk/wv``, ``gate/up``, ``lm_head``)
   give the rank's output columns, with no collective;
@@ -46,7 +48,12 @@ plan, which GSPMD derives from the same specs in the reference):
   heads (or whole); against a cache split over its sequence (the
   flash-decoding layout) each rank attends every head over its slice of
   the positions, and the partial max, sum and output are combined:
-  all-reduce max, then all-reduce sum, both in float32.
+  all-reduce max, then all-reduce sum, both in float32;
+* the helpers the recurrent families share: :func:`whole_cols` gathers a
+  split projection's columns, :func:`whole_state` a split state leaf,
+  :func:`block_of` / :func:`state_block` cut a whole tensor to the rank's
+  block, and :func:`rmsnorm_split` normalises channels split over the
+  axis by a float32 all-reduce of the sum of squares.
 
 Every collective goes through ``launch/collectives.py`` over the
 ``"model"`` group, so ``launch.hloparse.Recorder`` records it; on a
@@ -169,10 +176,41 @@ def gather_vocab(logits: Tensor, owner: str) -> Tensor:
     """Logits over the rank's vocabulary (``owner``'s columns or rows)
     all-gathered over the model axis into the whole vocabulary, in the
     logits' dtype; unchanged when ``owner`` is whole."""
-    tp = tensor_parallel()
+    return whole_cols(tensor_parallel(), logits, owner)
+
+
+def whole_cols(tp, y: Tensor, owner: str) -> Tensor:
+    """``y``, the output columns of ``owner``'s projection on this rank,
+    over every column: all-gathered over the model axis in ``y``'s dtype
+    where ``owner`` is split, unchanged where it is whole."""
     if not _split(tp, owner):
-        return logits
-    return C.all_gather(logits, tp.group, -1)
+        return y
+    return C.all_gather(y, tp.group, -1)
+
+
+def whole_state(tp, x: Tensor, name: str) -> Tensor:
+    """Serve-state leaf ``name``'s block ``x`` on this rank (split over
+    its last dim) all-gathered over the model axis where the plan splits
+    it (``TensorParallel.state``); unchanged where it is whole."""
+    if tp is None or name not in tp.state:
+        return x
+    return C.all_gather(x, tp.group, -1)
+
+
+def block_of(tp, x: Tensor, dim: int = -1) -> Tensor:
+    """This rank's block of ``x``'s dim ``dim`` (a view), as a split over
+    the model axis cuts it (:func:`model_block`): a replicated vector or
+    a whole activation cut to the block a split neighbour holds."""
+    lo, hi = model_block(x.shape[dim], tp)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def state_block(tp, x: Tensor, name: str, dim: int = -1) -> Tensor:
+    """:func:`block_of` where the plan splits serve-state leaf ``name``
+    over the model axis, ``x`` where it is whole."""
+    if tp is None or name not in tp.state:
+        return x
+    return block_of(tp, x, dim)
 
 
 def unembed(p: Params, x: Tensor, compute_dtype=torch.float32) -> Tensor:
@@ -197,6 +235,19 @@ def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def rmsnorm_split(p: Params, x: Tensor, tp, eps: float = 1e-6) -> Tensor:
+    """:func:`rmsnorm` over channels split over the model axis: ``x``
+    holds this rank's block of them and ``p["scale"]`` is whole; the mean
+    of squares is the float32 sum of squares all-reduced over the axis,
+    over the whole width (the plain :func:`rmsnorm` on one rank)."""
+    if tp.size == 1:
+        return rmsnorm(p, x, eps)
+    xf = x.float()
+    ss = C.all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True), tp.group)
+    y = xf * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
+    return (y * block_of(tp, p["scale"]).float()).to(x.dtype)
 
 
 def init_layernorm(d: int, *, parametric: bool = True, dtype=torch.float32,
@@ -429,6 +480,7 @@ def attention_full(
     compute_dtype=torch.float32,
     cache_dtype: Optional[torch.dtype] = None,
     window: Optional[int] = None,
+    cache_block: bool = True,
 ):
     """Full-sequence attention (train / prefill). Returns (B, S, D).
 
@@ -451,11 +503,14 @@ def attention_full(
 
     With ``cache_dtype`` set it returns ``(out, cache)``: the prefix's KV
     cache, rotated keys and values cast to ``cache_dtype``, which the
-    reference's ``attention_prefill_cache`` computes a second time.
+    reference's ``attention_prefill_cache`` computes a second time.  Under
+    a plan whose cache is split over its sequence, the cache is the rank's
+    block of the positions; with ``cache_block=False`` every position, for
+    a caller that lays them out itself (the hybrid's modular window).
     """
     b, s, _ = x.shape
     src = x if kv_ctx is None else kv_ctx
-    tp = tensor_parallel()  # set for the dense family's self-attention only
+    tp = tensor_parallel()  # set on the tensor-parallel serving steps
     q, h0, cols = _query_heads(tp, linear(p["wq"], x, compute_dtype),
                                n_heads)
     head_dim = q.shape[-1]
@@ -504,7 +559,7 @@ def attention_full(
                      compute_dtype, "wo")
     if cache_dtype is None:
         return out
-    if tp is not None and tp.cache_seq:  # the rank's block of positions
+    if tp is not None and tp.cache_seq and cache_block:  # its positions
         lo, hi = model_block(s, tp)
         k_all, v_all = k_all[:, :, lo:hi], v_all[:, :, lo:hi]
     return out, {"k": k_all.to(cache_dtype), "v": v_all.to(cache_dtype)}

@@ -29,6 +29,28 @@ reference's ``prefill`` leaves it on the masked default), so
 ``forward`` and ``loss_fn`` (training) run the ``"chunked"`` SSD;
 ``cfg.remat`` recomputes each Mamba layer in the backward pass (the
 shared blocks are kept, as in the reference).
+
+Tensor parallelism (``serve/efm.py``'s serving steps on a mesh; the plan
+is ``layers.tensor_parallel()``): each rank runs the SSD on its block of
+the heads where the serve specs split ``ssm`` over them (all heads
+otherwise).  ``in_proj``'s column block does not line up with those heads
+(its output is [z, x, B, C, dt]), so a split ``in_proj``'s output is
+all-gathered; the rank takes its heads' z, x and dt and the whole B and C,
+and convolves its x channels with B and C (the conv's weights are whole:
+sliced).  The gated RMSNorm over ``d_inner`` takes its sum of squares by
+a float32 all-reduce where the heads are split, and ``out_proj`` (row
+blocks) all-reduces its partial products.  The conv state is split over
+its channels, which do not line up with the rank's x channels either: it
+is cut from the whole pre-conv (x, B, C) at prefill, and all-gathered
+before each decode step's window.  The shared blocks run
+``layers.attention_full`` / ``layers.mlp`` on their blocks, ``out`` as a
+row-parallel projection, and their K/V cache holds the rank's kv heads
+where they divide the model axis.  Where they do not, ``wk``/``wv`` are
+whole and the cache is split over its window's slots: the prefill lays
+out the rank's block of slots from every position's K/V, and a decode
+step writes the new K/V on the rank that holds its slot, attends every
+query head over the rank's slots and combines the partial softmaxes over
+the axis (``layers._softmax_over_model``).
 """
 
 from __future__ import annotations
@@ -115,36 +137,76 @@ def mamba_block(
     d_inner, h, conv_ch, n = _dims(cfg)
     cdt = cfg.cdt
     f32 = torch.float32
+    tp = L.tensor_parallel()
     xn = L.rmsnorm(p["ln"], x)
-    z, xin, bm, cm, dt = _split_proj(cfg, L.linear(p["in_proj"], xn, cdt))
+    z, xin, bm, cm, dt = _split_proj(cfg, L.whole_cols(
+        tp, L.linear(p["in_proj"], xn, cdt), "in_proj"))
 
-    # causal depthwise conv over (x, B, C)
+    # causal depthwise conv over (x, B, C): the rank's heads' x channels
     xbc = torch.cat([xin, bm, cm], dim=-1)  # (B,S,conv_ch)
-    pad = F.pad(xbc, (0, 0, cfg.ssm_conv - 1, 0))
+    hs, xs = _heads_of(tp, cfg)
+    d_loc, h_loc = xs.stop - xs.start, hs.stop - hs.start
+    xbc_r, conv_w, conv_b = _conv_channels(p, xbc, xs, d_inner)
+    pad = F.pad(xbc_r, (0, 0, cfg.ssm_conv - 1, 0))
     conv = 0
     for i in range(cfg.ssm_conv):
-        conv = conv + pad[:, i:i + s] * p["conv_w"][i].to(cdt)
-    conv = F.silu(conv + p["conv_b"].to(cdt))
-    xin = conv[..., :d_inner]
-    bm = conv[..., d_inner:d_inner + n].to(f32)
-    cm = conv[..., d_inner + n:].to(f32)
+        conv = conv + pad[:, i:i + s] * conv_w[i].to(cdt)
+    conv = F.silu(conv + conv_b.to(cdt))
+    xin = conv[..., :d_loc]
+    bm = conv[..., d_loc:d_loc + n].to(f32)
+    cm = conv[..., d_loc + n:].to(f32)
 
-    dt = _softplus(dt.to(f32) + p["dt_bias"])  # (B,S,H) > 0
-    a = -torch.exp(p["a_log"])  # (H,) < 0
+    dt = _softplus(dt[..., hs].to(f32) + p["dt_bias"][hs])  # (B,S,H) > 0
+    a = -torch.exp(p["a_log"][hs])  # (H,) < 0
     a_log_t = (dt * a).transpose(1, 2)  # (B,H,S)
-    xh = xin.to(f32).reshape(b, s, h, HEAD_P)
+    xh = xin.to(f32).reshape(b, s, h_loc, HEAD_P)
     xh = (xh * dt[..., None]).transpose(1, 2)  # (B,H,S,P)
 
     y, s_fin = mamba2_ssd(xh, a_log_t, bm, cm, backend=backend,
                           chunk=cfg.scan_chunk)
-    y = y + xh * p["d_skip"].to(f32)[None, :, None, None]
-    y = y.transpose(1, 2).reshape(b, s, d_inner).to(cdt)
-    y = L.rmsnorm(p["gn"], y * F.silu(z))
-    out = L.linear(p["out_proj"], y, cdt)
+    y = y + xh * p["d_skip"][hs].to(f32)[None, :, None, None]
+    y = y.transpose(1, 2).reshape(b, s, d_loc).to(cdt)
+    out = _gated_out(tp, p, y, z[..., xs], d_inner, cdt)
     if return_state:
-        conv_state = xbc[:, s - (cfg.ssm_conv - 1):].to(f32)
+        conv_state = L.state_block(
+            tp, xbc[:, s - (cfg.ssm_conv - 1):].to(f32), "conv")
         return out, conv_state, s_fin
     return out
+
+
+def _heads_of(tp, cfg: ModelConfig) -> Tuple[slice, slice]:
+    """The SSD heads this rank runs and their channels of ``d_inner``: its
+    block where the plan splits ``ssm`` over the heads, all of them
+    otherwise."""
+    _, h, _, _ = _dims(cfg)
+    h0, h1 = (0, h) if tp is None or "ssm" not in tp.state else \
+        L.model_block(h, tp)
+    return slice(h0, h1), slice(h0 * HEAD_P, h1 * HEAD_P)
+
+
+def _conv_channels(p: Params, xbc: Tensor, xs: slice, d_inner: int):
+    """``(x[xs], B, C)`` of ``xbc`` (..., conv_ch) and the conv's weights
+    and bias for those channels (all of them when ``xs`` is all of x)."""
+    if xs.stop - xs.start == d_inner:
+        return xbc, p["conv_w"], p["conv_b"]
+    return tuple(torch.cat([t[..., xs], t[..., d_inner:]], dim=-1)
+                 for t in (xbc, p["conv_w"], p["conv_b"]))
+
+
+def _gated_out(tp, p: Params, y: Tensor, z: Tensor, d_inner: int,
+               cdt) -> Tensor:
+    """``out_proj(gn(y * silu(z)))`` on the rank's channels of ``d_inner``
+    (``y``, ``z``): the norm's sum of squares all-reduced where they are a
+    block of it, ``out_proj``'s rows cut to them and its partial products
+    all-reduced where it is split."""
+    y = y * F.silu(z)
+    if y.shape[-1] < d_inner:  # the rank's heads
+        y = L.rmsnorm_split(p["gn"], y, tp)
+    else:
+        y = L.rmsnorm(p["gn"], y)
+        if L._split(tp, "out_proj"):
+            y = L.block_of(tp, y)
+    return L.linear_row(p["out_proj"], y, cdt, "out_proj")
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +249,16 @@ def shared_block(
         window=window,
     ).to(h.dtype)
     h = h + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], h), cfg.cdt).to(h.dtype)
-    return L.linear(p["out"], h, cfg.cdt)
+    return _shared_out(p, h, cfg.cdt)
+
+
+def _shared_out(p: Params, h: Tensor, cdt) -> Tensor:
+    """The shared block's ``out`` projection back to D: row-parallel, on
+    the rank's block of ``h``'s 2D channels, where it is split."""
+    tp = L.tensor_parallel()
+    if L._split(tp, "out"):
+        h = L.block_of(tp, h)
+    return L.linear_row(p["out"], h, cdt, "out")
 
 
 # ---------------------------------------------------------------------------
@@ -256,18 +327,31 @@ def loss_fn(p: Params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device) -> Dict[str, Tensor]:
+               device, tp=None) -> Dict[str, Tensor]:
+    """The zero serve cache; with a tensor-parallel plan ``tp``, this
+    rank's block of it (the leaves ``tp.state`` splits: ``conv`` over its
+    channels, ``ssm`` over heads, ``k``/``v`` over kv heads or slots)."""
     d_inner, h, conv_ch, n = _dims(cfg)
     n_inv = n_shared_invocations(cfg)
     w = _serve_window(cfg, max_seq) or max_seq
     head_dim = 2 * cfg.d_model // cfg.n_heads
     f32 = torch.float32
-    kv_shape = (n_inv, batch, cfg.n_kv_heads, w, head_dim)
+
+    def local(name, size):
+        return size // tp.size if tp is not None and name in tp.state \
+            else size
+
+    # K/V over kv heads, or over the window's slots (``tp.cache_seq``)
+    over_slots = tp is not None and tp.cache_seq
+    kv_shape = (n_inv, batch, cfg.n_kv_heads if over_slots else
+                local("k", cfg.n_kv_heads), local("k", w) if over_slots
+                else w, head_dim)
     return {
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_ch),
-                            dtype=f32, device=device),
-        "ssm": torch.zeros((cfg.n_layers, batch, h, n, HEAD_P), dtype=f32,
-                           device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                             local("conv", conv_ch)), dtype=f32,
+                            device=device),
+        "ssm": torch.zeros((cfg.n_layers, batch, local("ssm", h), n, HEAD_P),
+                           dtype=f32, device=device),
         "k": torch.zeros(kv_shape, dtype=cfg.cachedt, device=device),
         "v": torch.zeros(kv_shape, dtype=cfg.cachedt, device=device),
         "slot_pos": torch.full((n_inv, batch, w), -1, dtype=torch.int32,
@@ -288,14 +372,20 @@ def prefill(
     ``"pallas"``.
     """
     b, s = tokens.shape
+    tp = L.tensor_parallel()
     x = L.embed(p["embed"], tokens, cfg.cdt)
     emb0 = x
-    cache = init_cache(cfg, b, s, x.device)
-    w = cache["k"].shape[3]
+    cache = init_cache(cfg, b, s, x.device, tp)
+    w = _serve_window(cfg, s) or s
     # positions kept in the windowed cache and their modular slots
     kept = torch.arange(max(0, s - w), s, device=x.device)
     slots = torch.remainder(kept, w)
     win = None if w >= s else cfg.attn_window
+    over_slots = tp is not None and tp.cache_seq
+    if over_slots:  # the position each of the rank's slots keeps
+        lo, hi = L.model_block(w, tp)
+        held = (s - w) + torch.remainder(
+            torch.arange(lo, hi, device=x.device) - s, w)
     for gi, layers, bi in _groups(cfg):
         for i in layers:
             y, cache["conv"][i], cache["ssm"][i] = mamba_block(
@@ -307,14 +397,19 @@ def prefill(
         a, kv = L.attention_full(
             sp["attn"], L.rmsnorm(sp["ln1"], h), cfg.n_heads, cfg.n_kv_heads,
             rope_base=cfg.rope_base, backend=cfg.attn_backend,
-            compute_dtype=cfg.cdt, cache_dtype=cfg.cachedt, window=win)
+            compute_dtype=cfg.cdt, cache_dtype=cfg.cachedt, window=win,
+            cache_block=False)
         hh = h + a.to(h.dtype)
         hh = hh + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], hh),
                         cfg.cdt).to(hh.dtype)
-        x = x + L.linear(sp["out"], hh, cfg.cdt).to(x.dtype)
+        x = x + _shared_out(sp, hh, cfg.cdt).to(x.dtype)
         # scatter the kept suffix into modular slots
-        cache["k"][gi][:, :, slots] = kv["k"][:, :, kept]
-        cache["v"][gi][:, :, slots] = kv["v"][:, :, kept]
+        if over_slots:
+            cache["k"][gi] = kv["k"][:, :, held]
+            cache["v"][gi] = kv["v"][:, :, held]
+        else:
+            cache["k"][gi][:, :, slots] = kv["k"][:, :, kept]
+            cache["v"][gi][:, :, slots] = kv["v"][:, :, kept]
         cache["slot_pos"][gi][:, slots] = kept.to(torch.int32)
     x = L.rmsnorm(p["final_norm"], x[:, -1:])
     return L.unembed(p["embed"], x, cfg.cdt), cache
@@ -331,29 +426,35 @@ def _mamba_step(
     d_inner, h, conv_ch, n = _dims(cfg)
     cdt = cfg.cdt
     f32 = torch.float32
+    tp = L.tensor_parallel()
     xn = L.rmsnorm(p["ln"], x)
-    z, xin, bm, cm, dt = _split_proj(cfg, L.linear(p["in_proj"], xn, cdt))
+    z, xin, bm, cm, dt = _split_proj(cfg, L.whole_cols(
+        tp, L.linear(p["in_proj"], xn, cdt), "in_proj"))
     xbc = torch.cat([xin, bm, cm], dim=-1)  # (B, conv_ch)
+    conv_state = L.whole_state(tp, conv_state, "conv")
     win = torch.cat([conv_state.to(cdt), xbc[:, None]], dim=1)  # (B, W, ch)
-    conv = torch.einsum("bwc,wc->bc", win, p["conv_w"].to(cdt)) + \
-        p["conv_b"].to(cdt)
+    hs, xs = _heads_of(tp, cfg)
+    d_loc, h_loc = xs.stop - xs.start, hs.stop - hs.start
+    win_r, conv_w, conv_b = _conv_channels(p, win, xs, d_inner)
+    conv = torch.einsum("bwc,wc->bc", win_r, conv_w.to(cdt)) + \
+        conv_b.to(cdt)
     conv = F.silu(conv)
-    new_conv_state = win[:, 1:].to(f32)
+    new_conv_state = L.state_block(tp, win[:, 1:].to(f32), "conv")
 
-    xin = conv[..., :d_inner].to(f32)
-    bm = conv[..., d_inner:d_inner + n].to(f32)
-    cm = conv[..., d_inner + n:].to(f32)
-    dt = _softplus(dt.to(f32) + p["dt_bias"])  # (B, H)
-    a = -torch.exp(p["a_log"])
+    xin = conv[..., :d_loc].to(f32)
+    bm = conv[..., d_loc:d_loc + n].to(f32)
+    cm = conv[..., d_loc + n:].to(f32)
+    dt = _softplus(dt[..., hs].to(f32) + p["dt_bias"][hs])  # (B, H)
+    a = -torch.exp(p["a_log"][hs])
     decay = torch.exp(dt * a)  # (B, H)
-    xh = xin.reshape(b, h, HEAD_P) * dt[..., None]
+    xh = xin.reshape(b, h_loc, HEAD_P) * dt[..., None]
     ssm_new = (decay[..., None, None] * ssm
                + bm[:, None, :, None] * xh[:, :, None, :])  # (B,H,N,P)
-    y = torch.einsum("bn,bhnp->bhp", cm, ssm_new) + xh * p["d_skip"].to(
-        f32)[None, :, None]
-    y = y.reshape(b, d_inner).to(cdt)
-    y = L.rmsnorm(p["gn"], y * F.silu(z))
-    return L.linear(p["out_proj"], y, cdt), new_conv_state, ssm_new
+    y = torch.einsum("bn,bhnp->bhp", cm, ssm_new) + xh * p["d_skip"][
+        hs].to(f32)[None, :, None]
+    y = y.reshape(b, d_loc).to(cdt)
+    return (_gated_out(tp, p, y, z[..., xs], d_inner, cdt), new_conv_state,
+            ssm_new)
 
 
 def _shared_decode(
@@ -371,34 +472,51 @@ def _shared_decode(
     head_dim = d2 // cfg.n_heads
     w = k_c.shape[2]
     cdt = cfg.cdt
+    tp = L.tensor_parallel()
     h = torch.cat([x, emb0], dim=-1)
     hn = L.rmsnorm(p["ln1"], h)
     ap = p["attn"]
-    q = L._split_heads(L.linear(ap["wq"], hn, cdt), cfg.n_heads)
-    k_new = L._split_heads(L.linear(ap["wk"], hn, cdt), cfg.n_kv_heads)
-    v_new = L._split_heads(L.linear(ap["wv"], hn, cdt), cfg.n_kv_heads)
+    # Under tensor parallelism: the rank's query heads (all of them, and
+    # its columns of wo's rows, where they split mid-head) and its kv heads.
+    over_slots = tp is not None and tp.cache_seq  # the rank's slots
+    q, h0, cols = L._query_heads(tp, L.linear(ap["wq"], hn, cdt),
+                                 cfg.n_heads, every_head=over_slots)
+    k_new = L.linear(ap["wk"], hn, cdt)
+    v_new = L.linear(ap["wv"], hn, cdt)
+    k_new = L._split_heads(k_new, k_new.shape[-1] // head_dim)
+    v_new = L._split_heads(v_new, v_new.shape[-1] // head_dim)
     # A fill on the device, not a copy from the host (see attention_decode).
     cos, sin = L.rope_cos_sin(torch.full((1,), pos, device=x.device),
                               head_dim, cfg.rope_base)
     q = L.apply_rope(q, cos, sin)
     k_new = L.apply_rope(k_new, cos, sin)
 
-    slot = pos % w
-    k_c[:, :, slot:slot + 1] = k_new.to(k_c.dtype)
-    v_c[:, :, slot:slot + 1] = v_new.to(v_c.dtype)
+    lo = tp.rank * w if over_slots else 0  # the rank's first slot
+    slot = pos % (w * tp.size if over_slots else w)
+    if lo <= slot < lo + w:  # the rank holding the slot writes it
+        k_c[:, :, slot - lo:slot - lo + 1] = k_new.to(k_c.dtype)
+        v_c[:, :, slot - lo:slot - lo + 1] = v_new.to(v_c.dtype)
     slot_pos[:, slot] = pos
-    group = cfg.n_heads // cfg.n_kv_heads
-    kr = L._repeat_kv(k_c.to(cdt), group)
-    vr = L._repeat_kv(v_c.to(cdt), group)
+    kc, vc = L._kv_heads(tp, k_c, v_c, h0, q.shape[1], cfg.n_heads,
+                         cfg.n_kv_heads)
+    group = q.shape[1] // kc.shape[1]
+    kr = L._repeat_kv(kc.to(cdt), group)
+    vr = L._repeat_kv(vc.to(cdt), group)
     logits = torch.matmul(q, kr.transpose(-1, -2)).float()
     logits = logits / math.sqrt(head_dim)
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    held = slot_pos[:, lo:lo + w]
+    valid = (held >= 0) & (held <= pos)
     logits = logits.masked_fill(~valid[:, None, None, :], L._NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(cdt)
-    o = L._merge_heads(torch.matmul(probs, vr))
-    h = h + L.linear(ap["wo"], o, cdt).to(h.dtype)
+    if over_slots:
+        o = L._softmax_over_model(tp, logits, vr).to(cdt)
+    else:
+        probs = torch.softmax(logits, dim=-1).to(cdt)
+        o = torch.matmul(probs, vr)
+    o = L._merge_heads(o)
+    h = h + L.linear_row(ap["wo"], o if cols is None else o[..., cols], cdt,
+                         "wo").to(h.dtype)
     h = h + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], h), cdt).to(h.dtype)
-    return L.linear(p["out"], h, cdt)
+    return _shared_out(p, h, cdt)
 
 
 def decode_step(

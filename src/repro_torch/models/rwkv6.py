@@ -19,6 +19,23 @@ layout (a leading ``L`` axis) and a Python loop takes the place of
 ``"chunked"`` by default, ``"pallas"`` for the CUDA kernel.  ``forward``
 and ``loss_fn`` (training) run the scan on ``"ref"``, as the reference's
 do; ``cfg.remat`` recomputes each block in the backward pass.
+
+Tensor parallelism (``serve/efm.py``'s serving steps on a mesh; the plan
+is ``layers.tensor_parallel()``): ``tm/wr``, ``tm/wg``, ``cm/wr`` are
+column blocks, ``tm/wo`` row blocks, ``tm/wk``, ``tm/wv``, ``cm/wk``,
+``cm/wv`` column blocks only where the heads and their width divide the
+model axis (whole otherwise), the mixing vectors whole.  The scan runs split over K, as the
+serve specs place ``wkv`` (L, B, H, K, V): decay, state and the intra-chunk
+terms are each k's own and meet only in ``o = sum_k r[k] (...)``, so each
+rank scans its K-slice of every head (r, k, ``w_log`` and u cut to it, v
+whole) and the partial o is all-reduced in float32; the state never
+moves.  r, k and v are all-gathered where their weights are split, the
+``tm/wo`` products all-reduced (``layers.linear_row``).  The channel mix
+gathers ``cm/wk``'s columns (``cm/wv`` reads all of ``d_ff``) and its
+output's block of ``d_model``.  The token-shift states are split over D:
+decode all-gathers each before its mixing and keeps its block of the new
+one.  Where K does not divide the axis, ``wkv`` is whole and every rank
+scans all of K.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ from torch import Tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.launch import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params
 
@@ -137,37 +155,79 @@ def time_mix(
     b, t, d = x.shape
     h, hd = _heads(cfg), cfg.rwkv_head_dim
     cdt = cfg.cdt
+    tp = L.tensor_parallel()
     x_r, x_k, x_v, x_w, x_g = _ddlerp(tm, x, _shift(x), cdt)
 
     def heads(y):
         return y.reshape(b, t, h, hd).transpose(1, 2)
 
-    r = heads(L.linear(tm["wr"], x_r, cdt))
-    k = heads(L.linear(tm["wk"], x_k, cdt))
-    v = heads(L.linear(tm["wv"], x_v, cdt))
+    r = heads(_projection(tp, tm, "wr", x_r, cdt))
+    k = heads(_projection(tp, tm, "wk", x_k, cdt))
+    v = heads(_projection(tp, tm, "wv", x_v, cdt))
     g = F.silu(L.linear(tm["wg"], x_g, cdt))
     w_log = heads(_decay_log(tm, x_w, cdt))
 
-    o, s_fin = rwkv6_scan(r, k, v, w_log, tm["u"].to(cdt), backend=backend,
+    ks = _k_slice(tp, hd)  # the rank's channels of K (all without a plan)
+    o, s_fin = rwkv6_scan(r[..., ks], k[..., ks], v, w_log[..., ks],
+                          tm["u"].to(cdt)[:, ks], backend=backend,
                           chunk=cfg.scan_chunk)  # (B, H, T, hd)
-    # On "pallas" o is the view of a (B, T, H, hd) buffer: the cast keeps
-    # its strides, so the transpose is contiguous and the reshape after the
-    # norm copies nothing.
-    o = o.to(cdt).transpose(1, 2)  # (B, T, H, hd)
+    # On "pallas" o is the view of a (B, T, H, hd) buffer: the transpose is
+    # contiguous, and so are the all-reduce's copy and the cast, so the
+    # reshape after the norm copies nothing.
+    o = _sum_over_k(tp, o.transpose(1, 2)).to(cdt)  # (B, T, H, hd)
     o = _group_norm(tm, o).reshape(b, t, d)
-    out = L.linear(tm["wo"], o * g, cdt)
+    out = _out_projection(tp, tm, o, g, cdt)
     if return_state:
         return out, s_fin
     return out
 
 
+def _projection(tp, tm: Params, name: str, x: Tensor, cdt) -> Tensor:
+    """TimeMix projection ``name`` (``wr``, ``wk``, ``wv``) over every
+    column: all-gathered where its weight is this rank's column block."""
+    return L.whole_cols(tp, L.linear(tm[name], x, cdt), f"tm/{name}")
+
+
+def _k_slice(tp, hd: int) -> slice:
+    """The channels of K this rank scans: its block where the plan splits
+    ``wkv`` over K, all of them otherwise."""
+    if tp is None or "wkv" not in tp.state:
+        return slice(None)
+    return slice(*L.model_block(hd, tp))
+
+
+def _sum_over_k(tp, o: Tensor) -> Tensor:
+    """The scan's output summed over every rank's K-slice, in float32
+    (``o`` as it is where each rank scans all of K)."""
+    if tp is None or "wkv" not in tp.state:
+        return o
+    return L._sum_over_model(tp, o)
+
+
+def _out_projection(tp, tm: Params, o: Tensor, g: Tensor, cdt) -> Tensor:
+    """``wo(o * g)``; where ``tm/wo`` is split (row blocks, and ``tm/wg``'s
+    column blocks: both on ``d_model``), on the rank's block of o's
+    channels, the partial products all-reduced."""
+    if L._split(tp, "tm/wo"):
+        o = L.block_of(tp, o)
+    return L.linear_row(tm["wo"], o * g, cdt, "tm/wo")
+
+
 def _channel_mix_tokens(cm: Params, x: Tensor, x_prev: Tensor, cdt) -> Tensor:
+    tp = L.tensor_parallel()
     delta = x_prev - x
     x_k = x + delta * cm["mu_k"].to(cdt)
     x_r = x + delta * cm["mu_r"].to(cdt)
     k = torch.square(torch.relu(L.linear(cm["wk"], x_k, cdt)))
+    k = L.whole_cols(tp, k, "cm/wk")  # cm/wv reads all of d_ff
     r = torch.sigmoid(L.linear(cm["wr"], x_r, cdt))
-    return r * L.linear(cm["wv"], k, cdt)
+    v = L.linear(cm["wv"], k, cdt)
+    split = [L._split(tp, f"cm/{n}") for n in ("wr", "wv")]
+    if not any(split):
+        return r * v
+    # the product on the rank's block of d_model, gathered after it
+    r, v = (y if s else L.block_of(tp, y) for y, s in zip((r, v), split))
+    return C.all_gather(r * v, tp.group, -1)
 
 
 def channel_mix(cm: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -231,6 +291,7 @@ def prefill(
     ``scan_backend`` is the ``rwkv6_scan`` backend of every layer:
     ``"chunked"`` (the reference's), ``"ref"`` or ``"pallas"``.
     """
+    tp = L.tensor_parallel()
     x = L.embed(p["embed"], tokens, cfg.cdt)
     x = L.layernorm(p["ln_in"], x)
     sh_tm, sh_cm, wkv = [], [], []
@@ -242,8 +303,8 @@ def prefill(
         x = x + a.to(x.dtype)
         h2 = L.layernorm(lp["ln2"], x)
         x = x + channel_mix(lp["cm"], h2, cfg).to(x.dtype)
-        sh_tm.append(h1[:, -1])
-        sh_cm.append(h2[:, -1])
+        sh_tm.append(L.state_block(tp, h1[:, -1], "shift_tm"))
+        sh_cm.append(L.state_block(tp, h2[:, -1], "shift_cm"))
         wkv.append(s_fin)
     x = L.layernorm(p["final_norm"], x[:, -1:])
     logits = L.unembed(p["embed"], x, cfg.cdt)
@@ -276,25 +337,29 @@ def init_state(cfg: ModelConfig, batch: int, device) -> Dict[str, Tensor]:
 def _tm_step(
     tm: Params, x: Tensor, shift: Tensor, wkv: Tensor, cfg: ModelConfig
 ) -> Tuple[Tensor, Tensor]:
-    """One-token TimeMix. x: (B, D); wkv: (B, H, K, V)."""
+    """One-token TimeMix. x: (B, D); wkv: (B, H, K, V), this rank's
+    K-slice under tensor parallelism."""
     b, d = x.shape
     h, hd = _heads(cfg), cfg.rwkv_head_dim
     cdt = cfg.cdt
+    tp = L.tensor_parallel()
     x_r, x_k, x_v, x_w, x_g = _ddlerp(tm, x, shift, cdt)
-    r = L.linear(tm["wr"], x_r, cdt).reshape(b, h, hd)
-    k = L.linear(tm["wk"], x_k, cdt).reshape(b, h, hd)
-    v = L.linear(tm["wv"], x_v, cdt).reshape(b, h, hd)
+    ks = _k_slice(tp, hd)
+    r = _projection(tp, tm, "wr", x_r, cdt).reshape(b, h, hd)[..., ks]
+    k = _projection(tp, tm, "wk", x_k, cdt).reshape(b, h, hd)[..., ks]
+    v = _projection(tp, tm, "wv", x_v, cdt).reshape(b, h, hd)
     g = F.silu(L.linear(tm["wg"], x_g, cdt))
-    w_log = _decay_log(tm, x_w, cdt).reshape(b, h, hd)
-    u = tm["u"].to(cdt)
+    w_log = _decay_log(tm, x_w, cdt).reshape(b, h, hd)[..., ks]
+    u = tm["u"].to(cdt)[:, ks]
 
     kv = k[..., None] * v[..., None, :]  # (B, H, K, V)
     o = torch.einsum("bhk,bhkv->bhv", r.to(wkv.dtype),
                      wkv + u[None, :, :, None] * kv)
+    o = _sum_over_k(tp, o)
     wkv_new = torch.exp(w_log)[..., None] * wkv + kv
     o = _group_norm(tm, o[:, None])[:, 0]  # (B, H, hd)
     o = o.reshape(b, d)
-    return L.linear(tm["wo"], o * g, cdt), wkv_new
+    return _out_projection(tp, tm, o, g, cdt), wkv_new
 
 
 def decode_step(
@@ -305,20 +370,23 @@ def decode_step(
     cfg: ModelConfig,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     cdt = cfg.cdt
+    tp = L.tensor_parallel()
     x = L.embed(p["embed"], token[:, 0], cdt)
     x = L.layernorm(p["ln_in"], x)
     sh_tm, sh_cm, wkv = [], [], []
     for i in range(cfg.n_layers):
         lp = layer_params(p["layers"], i)
         h1 = L.layernorm(lp["ln1"], x)
-        a, wkv_new = _tm_step(lp["tm"], h1, state["shift_tm"][i].to(cdt),
-                              state["wkv"][i], cfg)
+        shift = L.whole_state(tp, state["shift_tm"][i], "shift_tm")
+        a, wkv_new = _tm_step(lp["tm"], h1, shift.to(cdt), state["wkv"][i],
+                              cfg)
         x = x + a.to(x.dtype)
         h2 = L.layernorm(lp["ln2"], x)
-        x = x + _channel_mix_tokens(lp["cm"], h2, state["shift_cm"][i].to(cdt),
+        shift = L.whole_state(tp, state["shift_cm"][i], "shift_cm")
+        x = x + _channel_mix_tokens(lp["cm"], h2, shift.to(cdt),
                                     cdt).to(x.dtype)
-        sh_tm.append(h1)
-        sh_cm.append(h2)
+        sh_tm.append(L.state_block(tp, h1, "shift_tm"))
+        sh_cm.append(L.state_block(tp, h2, "shift_cm"))
         wkv.append(wkv_new)
     x = L.layernorm(p["final_norm"], x)
     logits = L.unembed(p["embed"], x, cdt)[:, None, :]

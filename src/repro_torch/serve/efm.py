@@ -16,19 +16,24 @@ code on its batch rows under the ambient mesh (``launch.mesh.use_mesh``).
 Plain tensors passed in are taken as the whole value, each rank cutting
 its own block (no collective).
 
-The dense family (TinyLlama, OLMo, Qwen2.5, Phi-4-mini; ``shard_strategy
-"tp"``) runs tensor-parallel, as the reference's GSPMD partitions it:
-every parameter stays as ``param_specs`` places it, each rank computes on
-its blocks (``to_local()``), and the layers all-reduce and all-gather
-activations over the ``"model"`` axis (``models/layers.py``); no
-parameter is gathered.  The cache is built and updated as each rank's
-block of ``serve_specs`` (over kv heads, or over the sequence where kv
-heads do not divide), and both steps return it as DTensors so placed.
+The dense family (TinyLlama, OLMo, Qwen2.5, Phi-4-mini), RWKV6 and the
+Zamba2 hybrid (``shard_strategy "tp"``) run tensor-parallel, as the
+reference's GSPMD partitions them: every parameter stays as
+``param_specs`` places it, each rank computes on its blocks
+(``to_local()``), and the layers all-reduce and all-gather activations
+over the ``"model"`` axis (``models/layers.py``, ``models/rwkv6.py``,
+``models/mamba2.py``); no parameter is gathered.  The state is built and
+updated as each rank's block of ``serve_specs`` (the K/V cache over kv
+heads, or over the sequence where kv heads do not divide; RWKV6's
+``wkv`` over K and its shifts over D; the hybrid's ``ssm`` over heads and
+``conv`` over channels, its windowed cache over kv heads or, where they
+do not divide, over its slots), and both steps return it as DTensors so
+placed.
 
-The other families (MoE/MLA, RWKV6, Zamba2, the VLM, the encoder-decoder)
-and the dense family under ``"dp"``/``"fsdp"`` still gather every
-parameter whole on each rank and run the unsharded code on the rank's
-rows; their prefill returns the cache split over the batch rows.
+The other families (MoE/MLA, the VLM, the encoder-decoder) and every
+family under ``"dp"``/``"fsdp"`` still gather every parameter whole on
+each rank and run the unsharded code on the rank's rows; their prefill
+returns the cache split over the batch rows.
 
 Prefill returns its logits split over the batch rows; decode returns them
 replicated (the reference's ``P()``) and the state placed by its specs.
@@ -87,18 +92,27 @@ def _need_shape(shape_spec) -> None:
                          "shape_spec (configs.base.ShapeSpec)")
 
 
+def _cache_seq(sspecs) -> bool:
+    """Whether the serve specs split the K/V cache (.., B, H, S, D) over
+    its sequence on ``"model"``."""
+    return "k" in sspecs and "model" in S.spec_axes(sspecs["k"][-2])
+
+
 def _tensor_parallel(model: Model) -> bool:
     """Whether the steps run ``model`` tensor-parallel on a mesh (the
     others gather every parameter whole)."""
-    return model.cfg.family == "dense" and model.cfg.shard_strategy == "tp"
+    cfg = model.cfg
+    return (cfg.family in ("dense", "rwkv6", "hybrid")
+            and cfg.shard_strategy == "tp")
 
 
 def _tp_plan(mesh, pspecs, sspecs):
     """The rank's ``TensorParallel`` for parameters placed by ``pspecs``
-    and a serve cache placed by ``sspecs``."""
+    and a serve state placed by ``sspecs``."""
     return M.tensor_parallel(
-        mesh, S.model_sharded(pspecs),
-        cache_seq="model" in S.spec_axes(sspecs["k"][-2]))  # (L,B,H,S,D)
+        mesh, S.model_sharded(pspecs), cache_seq=_cache_seq(sspecs),
+        state=[name for name, spec in sspecs.items()
+               if any("model" in S.spec_axes(e) for e in spec)])
 
 
 def _placed(x, sharding):

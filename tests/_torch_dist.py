@@ -484,8 +484,8 @@ def _sharded_checkpoint(rank, payload, mesh, sharded, local):
 
 
 # ---------------------------------------------------------------------------
-# test_torch_tp_serve.py: tensor-parallel prefill and decode of the dense
-# family
+# test_torch_tp_serve.py, test_torch_tp_serve_recurrent.py: tensor-parallel
+# prefill and decode of the dense, RWKV6 and hybrid families
 # ---------------------------------------------------------------------------
 
 
@@ -504,13 +504,30 @@ def _check_placed(tree, specs, mesh):
     return True
 
 
+def _leaf_errs(got, want):
+    """Each state leaf's largest difference from ``want``'s and ``want``'s
+    largest |value|; an integer leaf's difference is 0 where equal, inf
+    where not."""
+    out = {}
+    for k, w in want.items():
+        g, w = _np(got[k]), w.numpy()
+        if np.issubdtype(w.dtype, np.floating):
+            out[k] = (float(abs(g - w).max()), float(abs(w).max()))
+        else:
+            out[k] = (0.0 if np.array_equal(g, w) else float("inf"), 0.0)
+    return out
+
+
 def _tp_case(rank, case):
-    """The dense step on ``case["mesh"]`` from the reference's parameters,
-    placed by ``param_specs``: each logits' largest difference from
-    ``mesh=None``'s on the same rank, the logits themselves (rank 0), the
-    greedy tokens (``mesh=None``'s argmax), each step's collectives
-    (``Recorder``) and whether the caches come back as the serve specs
-    place them."""
+    """The family's step on ``case["mesh"]`` from the reference's
+    parameters, placed by ``param_specs``: each logits' largest difference
+    from ``mesh=None``'s on the same rank, the logits themselves (rank 0),
+    the greedy tokens (``mesh=None``'s argmax), each step's collectives
+    (``Recorder``), each state leaf's difference from ``mesh=None``'s and
+    whether the caches come back as the serve specs place them.
+    ``case["cfg"]`` overrides the smoke configuration in both packages,
+    ``case["port"]`` in the port only; ``case["scan_backend"]`` is the
+    port's scan backend."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -523,10 +540,13 @@ def _tp_case(rank, case):
     from repro_torch.serve import efm
 
     mesh = _mesh(case["mesh"], ("data", "model"))
-    cfg = get_smoke_config(case["arch"]).replace(cache_dtype="float32")
+    cfg = get_smoke_config(case["arch"]).replace(
+        cache_dtype="float32", **case.get("cfg", {}), **case.get("port", {}))
     cfg = cfg.replace(n_layers=case.get("n_layers", cfg.n_layers))
-    model = build_model(cfg, device="cpu")
-    whole = convert.dense_from_jax(case["params"], cfg, device="cpu")
+    model = build_model(cfg, device="cpu",
+                        scan_backend=case.get("scan_backend", "chunked"))
+    whole = getattr(convert, f"{cfg.family}_from_jax")(case["params"], cfg,
+                                                        device="cpu")
     tokens = _t(case["tokens"])
     b, s = tokens.shape
     n = case["new"]
@@ -545,8 +565,8 @@ def _tp_case(rank, case):
     out["records"].append([tuple(r) for r in rec.records])
     prefill_specs = S.serve_specs(cfg, model.serve_spec(b, s), mesh, b)
     out["cache_placed"] = _check_placed(cache, prefill_specs, mesh)
-    out["cache_err"] = max(float(abs(_np(cache[k]) - ref_cache[k].numpy())
-                                 .max()) for k in ("k", "v"))
+    out["cache_errs"] = _leaf_errs(cache, ref_cache)
+    out["cache_err"] = max(e for e, _ in out["cache_errs"].values())
     lg = _np(logits)
     out["logits"].append(lg)
     out["errs"].append(float(abs(lg - ref_logits.numpy()).max()))
@@ -565,8 +585,8 @@ def _tp_case(rank, case):
         tok = torch.argmax(rlg[:, -1:], dim=-1).to(torch.int32)
         out["tokens"].append(tok.numpy())
     out["state_placed"] = _check_placed(state, dspecs["state"], mesh)
-    out["state_err"] = max(float(abs(_np(state[k]) - ref_state[k].numpy())
-                                 .max()) for k in ("k", "v"))
+    out["state_errs"] = _leaf_errs(state, ref_state)
+    out["state_err"] = max(e for e, _ in out["state_errs"].values())
     if rank:
         out.pop("logits")
     return out

@@ -15,8 +15,10 @@ reference's ``repro.launch.dryrun``.
     ranks: ``run_cell``'s train step is ``ok``, with its collectives
     recorded; the prefill's ``flops`` per device equal ``FlopCounterMode``
     over the unsharded meta prefill of one rank's rows (the dense family,
-    which serves tensor-parallel, a count worked out from its specs:
-    :func:`dense_tp_prefill_flops`), and its ``argument_size_in_bytes``
+    RWKV6 and the hybrid, which serve tensor-parallel, a count worked out
+    from their specs: :func:`dense_tp_prefill_flops`,
+    :func:`recurrent_tp_prefill_flops`),
+    and its ``argument_size_in_bytes``
     equals ``sharded_bytes`` of the parameters and the batch.  RWKV6 and Zamba2 loop over time in Python (training
     takes the per-token ``"ref"`` scan, prefill the chunked one), which
     meta tensors make no cheaper: their ``run_cell`` step is
@@ -266,14 +268,108 @@ def dense_tp_prefill_flops(arch, shape_name="prefill_32k",
     return flops + 2 * rows * d_in * d_out
 
 
+def recurrent_tp_prefill_flops(plain, arch, shape_name="prefill_32k",
+                               mesh_shape=(16, 16)):
+    """The flops one rank of a (data, model) mesh counts in the
+    tensor-parallel prefill of RWKV6's or the hybrid's smoke configuration
+    (``scan_chunk`` at the sequence length, as the meta cells run it): the
+    unsharded prefill of its rows (``plain``, ``FlopCounterMode``'s count)
+    less what the rank does not compute: each split projection's other
+    blocks (the shared blocks' once an invocation), the chunked scan's work
+    outside the rank's K-slice or heads (``FlopCounterMode`` over the scan
+    at the whole shape and at the rank's, as the serve specs split ``wkv``
+    and ``ssm``), the shared attention's two products over the heads the
+    rank does not attend, and the last position's logits outside its
+    vocabulary."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+
+    shape = next(s for s in get_shapes(arch) if s.name == shape_name)
+    t = shape.seq_len
+    cfg = get_smoke_config(arch).replace(scan_chunk=t)
+    mesh = M.AbstractMesh(mesh_shape, ("data", "model"))
+    model = build_model(cfg, device="meta")
+    pshape = model.param_spec()
+    specs = S.param_specs(cfg, pshape, mesh)
+    rows = shape.global_batch // mesh.shape["data"]
+    model_axis = mesh.shape["model"]
+    hybrid = cfg.family == "hybrid"
+    n_inv = cfg.n_layers // cfg.shared_attn_period if hybrid else 0
+    saved = 0
+    for stack, times in (("layers", None), ("shared", n_inv)):
+        if stack not in pshape:
+            continue
+        leaves = pytree.tree_flatten_with_path(pshape[stack])[0]
+        for (path, x), spec in zip(leaves, S.leaves_like(pshape[stack],
+                                                         specs[stack])):
+            if path[-1].key == "w":
+                lead, d_in, d_out = x.shape
+                _, l_in, l_out = S.local_shape(tuple(x.shape), spec, mesh)
+                saved += (2 * rows * t * (times or lead)
+                          * (d_in * d_out - l_in * l_out))
+    vocab, width = pshape["embed"]["table"].shape
+    l_vocab, _ = S.local_shape((vocab, width), specs["embed"]["table"], mesh)
+    saved += 2 * rows * width * (vocab - l_vocab)
+    sshape = model.serve_spec(rows, t)
+    sspecs = S.serve_specs(cfg, sshape, mesh, rows)
+
+    def meta(*dims):
+        return torch.empty(dims, device="meta")
+
+    def counted(fn):
+        with FlopCounterMode(display=False) as fc:
+            fn()
+        return fc.get_total_flops()
+
+    if hybrid:
+        _, whole, n, p = sshape["ssm"].shape[1:]
+        part = S.local_shape(tuple(sshape["ssm"].shape), sspecs["ssm"],
+                             mesh)[2]
+
+        def scan(heads):
+            return counted(lambda: mamba2_ssd(
+                meta(rows, heads, t, p), meta(rows, heads, t),
+                meta(rows, t, n), meta(rows, t, n), backend="chunked",
+                chunk=t))
+
+        d2 = 2 * cfg.d_model
+        split = S.model_sharded(specs)
+        heads = (cfg.n_heads // model_axis if "wq" in split
+                 and cfg.n_heads % model_axis == 0 else cfg.n_heads)
+        saved += (n_inv * 2 * 2 * rows * (cfg.n_heads - heads) * t ** 2
+                  * (d2 // cfg.n_heads))
+    else:
+        _, _, heads, hd, _ = sshape["wkv"].shape
+        whole, part = hd, S.local_shape(tuple(sshape["wkv"].shape),
+                                        sspecs["wkv"], mesh)[3]
+
+        def scan(dk):
+            return counted(lambda: rwkv6_scan(
+                meta(rows, heads, t, dk), meta(rows, heads, t, dk),
+                meta(rows, heads, t, hd), meta(rows, heads, t, dk),
+                meta(heads, dk), backend="chunked", chunk=t))
+
+    saved += cfg.n_layers * (scan(whole) - scan(part))
+    return plain - saved
+
+
 @pytest.mark.parametrize("arch", _FAMILIES)
 def test_prefill_flops_and_argument_bytes_per_device(meta_cells, arch):
     rec = meta_cells[f"{arch}|prefill"]
     assert rec["ok"], rec["error"]
-    if get_smoke_config(arch).family == "dense":
+    family = get_smoke_config(arch).family
+    if family == "dense":
         # Served tensor-parallel: the rank's share of the products, not the
         # unsharded prefill of its rows with whole weights.
         assert rec["flops"] == dense_tp_prefill_flops(arch) > 0
+        assert rec["flops"] < rec["plain_flops"]
+    elif family in ("rwkv6", "hybrid"):
+        # Tensor-parallel too: the rank's blocks, K-slice or heads.
+        assert rec["flops"] == recurrent_tp_prefill_flops(
+            rec["plain_flops"], arch) > 0
         assert rec["flops"] < rec["plain_flops"]
     else:
         assert rec["flops"] == rec["plain_flops"] > 0
